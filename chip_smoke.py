@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. device  -- the card's name and power limit (nvidia-smi).
+2. build   -- nvcc builds every kernel of the serving path from
+              src/repro_torch/kernels/csrc (sm_90a).
+3. kernels -- each kernel against its plain PyTorch version on the card at
+              the serving path's shapes, in fp32 and bf16, and timed beside
+              the plain version, a one-call PyTorch yardstick where there is
+              one, and the card's bound.
+4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
+              cut to 4 layers, random bf16 weights from a seed) through an
+              8-request trace; every request must finish with finite logits
+              and every kernel of the path must have launched.
+5. profile -- the same trace twice more, warm: once plain (warm tok/s),
+              once under torch.profiler (device busy share, device time by
+              kernel).
+6. check   -- the reduced Mixtral config in fp32 on the card against the
+              same weights on the CPU: prefill logits and greedy token
+              streams must agree.
+
+The next-to-last line is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
+of the repository, it prints no result and exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data sheet: 3.35 TB/s HBM3, 989 TFLOP/s dense bf16
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# (E, M, K, N) of each kernel at decode (4 slots folded into M) and at a
+# prefill chunk (the trace's 16 tokens; 32 as a second chunk size)
+DECODE_M, PREFILL_MS = 4, (16, 32)
+E, D_MODEL, D_FF = 8, 4096, 14336
+TOL_F32 = 1e-4      # fp32 sums in another order, K up to 14336
+TOL_BF16 = 1e-2     # one bf16 ulp is at most 2**-7 relative
+
+SERVE_ARGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--requests", "8",
+              "--max-slots", "4", "--prompt-lens", "16,32,48,64",
+              "--prefill-chunk", "16", "--gen", "8,24", "--arrival-rate", "0",
+              "--seed", "0"]
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def device_phase() -> str:
+    phase("device")
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return line
+
+
+def build_phase() -> None:
+    phase("build")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    for name, info in build.build().items():
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"built {name} in {info['seconds']:.1f} s"
+              + (" (cached)" if info["cached"] else ""), flush=True)
+        for ln in ptxas:
+            print(f"  ptxas: {ln}")
+    print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean time of one call on the card, from CUDA events after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(E_, M, K, N, n_weights: int, elem_bytes: int = 2):
+    """The least time for the work: each input read once, the output written
+    once, at the memory rate; or the products at the bf16 tensor rate."""
+    nbytes = elem_bytes * (E_ * M * K + n_weights * E_ * K * N + E_ * M * N)
+    flops = 2 * n_weights * E_ * M * K * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _close(a, b, tol: float) -> bool:
+    import torch
+    return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def kernels_phase() -> dict:
+    """Check and time both kernels; returns {kernel name: entry}."""
+    phase("kernels")
+    import torch
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    # weights at the model's init scale, made once in fp32, cast for bf16
+    w1 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w3 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w2 = randn((E, D_FF, D_MODEL), D_FF ** -0.5)
+    wb = {k: v.bfloat16() for k, v in (("w1", w1), ("w3", w3), ("w2", w2))}
+
+    specs = {
+        "grouped_swiglu": dict(fn=gm.grouped_swiglu, plain=ref.grouped_swiglu_ref,
+                               weights=("w1", "w3"), K=D_MODEL, N=D_FF,
+                               library=None, replaces="src/repro/kernels/grouped_mlp.py:106"),
+        "grouped_matmul": dict(fn=gm.grouped_matmul, plain=ref.grouped_matmul_ref,
+                               weights=("w2",), K=D_FF, N=D_MODEL,
+                               library=torch.bmm, replaces="src/repro/kernels/grouped_mlp.py:81"),
+    }
+    w32 = {"w1": w1, "w3": w3, "w2": w2}
+    entries = {}
+    for name, s in specs.items():
+        shapes = []
+        for M in (DECODE_M, *PREFILL_MS):
+            x32 = randn((E, M, s["K"]))
+            ws32 = [w32[k] for k in s["weights"]]
+            wsb = [wb[k] for k in s["weights"]]
+            xb = x32.bfloat16()
+            got32, want32 = s["fn"](x32, *ws32), s["plain"](x32, *ws32)
+            gotb, wantb = s["fn"](xb, *wsb), s["plain"](xb, *wsb)
+            torch.cuda.synchronize()
+            err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
+            ok = _close(got32, want32, TOL_F32) and _close(gotb, wantb, TOL_BF16)
+            ms = cuda_ms(lambda: s["fn"](xb, *wsb))
+            plain_ms = cuda_ms(lambda: s["plain"](xb, *wsb))
+            lib_ms = (cuda_ms(lambda: s["library"](xb, *wsb))
+                      if s["library"] is not None else None)
+            bms, by = bound_ms(E, M, s["K"], s["N"], len(wsb))
+            row = {"M": M, "K": s["K"], "N": s["N"], "max_abs_err": errb,
+                   "max_abs_err_f32": err32, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            shapes.append(row)
+            print(f"{name} E={E} M={M} K={s['K']} N={s['N']}: "
+                  f"{'ok' if ok else 'MISMATCH'} err bf16 {errb:.3e} f32 {err32:.3e} | "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
+                  flush=True)
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version at M={M} "
+                                 f"(bf16 tol {TOL_BF16}, f32 tol {TOL_F32})")
+        head = shapes[0]           # the decode wave: most of the path's launches
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
+            "replaces": s["replaces"], "launches": 0,
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shapes": shapes,
+        }
+    del w1, w3, w2, wb, w32
+    torch.cuda.empty_cache()
+    return entries
+
+
+def serve_phase() -> dict:
+    """Drive the port's serving entry point; returns the kernels' launch
+    counts from this run."""
+    phase("serve")
+    import torch
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import num_moe_layers
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = (gm.grouped_swiglu, gm.grouped_matmul)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sched, m = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    wall = time.perf_counter() - t0
+
+    n_moe = num_moe_layers(sched.cfg)
+    forwards = m["decode_waves"] + m["prefill_chunks"]
+    print(f"serve phase {wall:.1f} s (weights built on the card included); "
+          f"{m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, "
+          f"p99 {m['latency_p99_s']:.3f} s, {m['decode_waves']} decode waves, "
+          f"{m['prefill_chunks']} prefill chunks, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(f"launches {launches}: {n_moe} MoE layers x {forwards} forward passes "
+          f"-> {n_moe} of each kernel per decode wave", flush=True)
+    unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
+    if m["requests"] != 8 or unfinished or sched.queue or sched.active:
+        raise SystemExit(f"not every request finished: {m['requests']}/8 done, "
+                         f"short {unfinished}")
+    if m["nonfinite_logits"]:
+        raise SystemExit(f"{m['nonfinite_logits']} sampled logit rows were not finite")
+    for name, n in launches.items():
+        if n != n_moe * forwards:
+            raise SystemExit(f"{name} launched {n} times; the path runs it "
+                             f"{n_moe * forwards} times (once per MoE layer per pass)")
+    return launches
+
+
+def profile_phase() -> None:
+    """Warm reruns of the serve trace: one plain, one under torch.profiler."""
+    phase("profile")
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SERVE_ARGS)
+    sched, trace = serve.setup(args)
+    m = sched.run(trace)
+    print(f"warm rerun: {m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, "
+          f"p99 {m['latency_p99_s']:.3f} s over {m['decode_waves']} decode waves "
+          f"and {m['prefill_chunks']} prefill chunks "
+          f"({1e3 * m['elapsed_s'] / (m['decode_waves'] + m['prefill_chunks']):.2f} "
+          f"ms per forward pass)", flush=True)
+    warm_s = m["elapsed_s"]
+    del sched
+    sched, trace = serve.setup(args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m = sched.run(trace)
+        torch.cuda.synchronize()
+    # device-side events only: an aten op's row also carries its kernels' time
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[2] for r in rows)
+    ours_us = sum(r[2] for r in rows if "grouped_" in r[0])
+    wall_us = 1e6 * m["elapsed_s"]
+    print(f"profiled run: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{device_us / 1e3:.1f} ms ({100 * device_us / wall_us:.1f}%, idle "
+          f"{100 - 100 * device_us / wall_us:.1f}%), of which the grouped kernels "
+          f"{ours_us / 1e3:.1f} ms ({100 * ours_us / max(device_us, 1):.1f}% of device time); "
+          f"against the unprofiled warm wall {1e3 * warm_s:.1f} ms the device is idle "
+          f"{100 - 100 * (device_us / 1e6) / warm_s:.1f}%", flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def check_phase() -> None:
+    """The reduced config in fp32: the card (kernels) against the CPU (plain
+    versions), same weights, same requests."""
+    phase("check")
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import DistContext
+    from repro_torch.models import transformer
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request, ServeConfig)
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    cpu = transformer.init_params(cfg, device="cpu", seed=1)
+    gpu = {"embed": cpu["embed"].cuda(), "head": cpu["head"].cuda(),
+           "final_norm": {"scale": cpu["final_norm"]["scale"].cuda()},
+           "layers": [_to(layer, "cuda") for layer in cpu["layers"]]}
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 48))
+    outs = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        ctx = DistContext(device=torch.device(dev))
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, ctx, {"tokens": torch.as_tensor(tokens, device=dev)})
+        reqs = [Request(rid=i, tokens=rng_tokens, max_new_tokens=12)
+                for i, rng_tokens in enumerate(
+                    np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 32)))]
+        sched = ContinuousBatchingScheduler(
+            params, cfg, ctx, ServeConfig(max_slots=2, cache_len=80, prefill_chunk=16))
+        sched.run(reqs)
+        outs[dev] = (logits.cpu(), [r.out for r in reqs])
+    err = (outs["cpu"][0] - outs["cuda"][0]).abs().max().item()
+    same = outs["cpu"][1] == outs["cuda"][1]
+    print(f"reduced {cfg.name} fp32: prefill logits max |card - cpu| = {err:.3e}; "
+          f"greedy streams of 4 requests {'equal' if same else 'DIFFER'}", flush=True)
+    if not np.isfinite(err) or err > 1e-3 or not same:
+        raise SystemExit("the card disagrees with the CPU on the reduced config")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch not found beside this script)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    device_phase()
+    build_phase()
+    entries = kernels_phase()
+    launches = serve_phase()
+    profile_phase()
+    check_phase()
+    for name, n in launches.items():
+        entries[name]["launches"] = n
+    print(json.dumps({"kernels": list(entries.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

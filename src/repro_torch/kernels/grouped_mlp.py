@@ -1,0 +1,95 @@
+"""Grouped (per-expert) matmul and fused SwiGLU: the CUDA kernels' wrappers.
+
+``grouped_swiglu`` and ``grouped_matmul`` take the capacity layout of the
+expert FFN, x (E, M, K) against stacked expert weights (E, K, N).  On a CUDA
+tensor they launch the hand-written kernels of ``csrc/grouped_mlp.cu``
+(built by ``kernels/build.py``); on a CPU tensor they compute the plain
+version from ``kernels/ref.py``.  There is no other path: a failed build or
+launch raises.  Each wrapper counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_VEC = 8          # K and N in multiples of one 16-byte vector of bf16
+_MAX_M = 64 * 65535   # 64-row M tiles on the grid's y axis
+
+
+def _check(x: torch.Tensor, ws: tuple) -> tuple[int, int, int, int]:
+    """Shapes, types and devices both paths require; returns (E, M, K, N)."""
+    if x.dim() != 3 or any(w.dim() != 3 for w in ws):
+        raise ValueError(f"expected x (E, M, K) and weights (E, K, N); got "
+                         f"{tuple(x.shape)} and {[tuple(w.shape) for w in ws]}")
+    E, M, K = x.shape
+    N = ws[0].shape[2]
+    for w in ws:
+        if tuple(w.shape) != (E, K, N):
+            raise ValueError(f"weight shape {tuple(w.shape)} does not match "
+                             f"x {tuple(x.shape)} -> expected {(E, K, N)}")
+        if w.dtype != x.dtype or w.device != x.device:
+            raise ValueError(f"weights must share x's dtype and device "
+                             f"({x.dtype}, {x.device}); got {w.dtype}, {w.device}")
+    if x.dtype not in _SUFFIX:
+        raise ValueError(f"unsupported dtype {x.dtype}; the kernels take "
+                         f"{sorted(str(d) for d in _SUFFIX)}")
+    return E, M, K, N
+
+
+def _launch(wrapper, x: torch.Tensor, ws: tuple, dims) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel on x's current stream and count it."""
+    op = wrapper.__name__
+    E, M, K, N = dims
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: tensors must be on the CPU or a CUDA device; "
+                         f"got {x.device}")
+    if K % _VEC or N % _VEC or M > _MAX_M:
+        raise ValueError(f"{op}: K={K} and N={N} must be multiples of {_VEC} "
+                         f"and M={M} at most {_MAX_M}")
+    for t in (x, *ws):
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: operands must be 16-byte aligned")
+    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0 or K == 0:
+        return out.zero_()
+    lib = build.library("grouped_mlp")
+    fn = getattr(lib, f"{op}_{_SUFFIX[x.dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * (len(ws) + 2) + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):    # the launch goes to the current device
+        rc = fn(x.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr(),
+                E, M, K, N, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
+
+
+def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor,
+                   w3: torch.Tensor) -> torch.Tensor:
+    """Fused silu(x @ w1) * (x @ w3) per expert: (E, M, K) -> (E, M, N)."""
+    dims = _check(x, (w1, w3))
+    if x.device.type == "cpu":
+        return ref.grouped_swiglu_ref(x, w1, w3)
+    return _launch(grouped_swiglu, x, (w1, w3), dims)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, M, K) @ w (E, K, N) -> (E, M, N), one expert per group."""
+    dims = _check(x, (w,))
+    if x.device.type == "cpu":
+        return ref.grouped_matmul_ref(x, w)
+    return _launch(grouped_matmul, x, (w,), dims)
+
+
+grouped_swiglu.launches = 0
+grouped_matmul.launches = 0
