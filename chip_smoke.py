@@ -6,12 +6,14 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  -- the card's name and power limit (nvidia-smi).
-2. build   -- nvcc builds every kernel of the serving path from
-              src/repro_torch/kernels/csrc (sm_90a).
+2. build   -- nvcc builds every kernel of the port from
+              src/repro_torch/kernels/csrc (sm_90a), one nvcc per source,
+              all started together.
 3. kernels -- each kernel against its plain PyTorch version on the card at
-              the serving path's shapes, in fp32 and bf16, and timed beside
-              the plain version, a one-call PyTorch yardstick where there is
-              one, and the card's bound.
+              the shapes its path gives it (serving: the grouped kernels;
+              training: dispatch, ragged matmul, fused MoE), in fp32 and
+              bf16, and timed beside the plain version, a one-call PyTorch
+              yardstick where there is one, and the card's bound.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace; every request must finish with finite logits
@@ -19,9 +21,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. profile -- the same trace twice more, warm: once plain (warm tok/s),
               once under torch.profiler (device busy share, device time by
               kernel).
-6. check   -- the reduced Mixtral config in fp32 on the card against the
+6. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
+              cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
+              of 2 x 2048 tokens on the EP strategy at one peer with the
+              fused expert leg, MACT choosing the schedule; every loss and
+              grad norm must be finite and every kernel of the path must
+              have launched.  Then one more step under torch.profiler.
+7. check   -- the reduced Mixtral config in fp32 on the card against the
               same weights on the CPU: prefill logits and greedy token
-              streams must agree.
+              streams must agree, and 2 training steps must give the same
+              schedules and losses.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -48,6 +57,15 @@ DECODE_M, PREFILL_MS = 4, (16, 32)
 E, D_MODEL, D_FF = 8, 4096, 14336
 TOL_F32 = 1e-4      # fp32 sums in another order, K up to 14336
 TOL_BF16 = 1e-2     # one bf16 ulp is at most 2**-7 relative
+
+TRAIN_ARGS = ["--arch", "mixtral-8x7b", "--layers", "2", "--ep", "--fused",
+              "--steps", "4", "--seq-len", "2048", "--global-batch", "2",
+              "--lr", "1e-4", "--seed", "0"]
+# the training path's kernel shapes: a 2048-token FCDA chunk (MACT picks 2
+# chunks of the 2 x 2048 tokens), top-2 of 8 experts, EP at one peer:
+# cap_send = 2 x 2048 = 4096 sent rows, R = 4096 + 8 x 128 = 5120 ragged rows
+T_CHUNK, TOP_K, BLOCK_M = 2048, 2, 128
+PLAIN_TRAIN_GB = 41.0     # the reckoned peak: 38 GB of train state + activations
 
 SERVE_ARGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--requests", "8",
               "--max-slots", "4", "--prompt-lens", "16,32,48,64",
@@ -190,6 +208,269 @@ def kernels_phase() -> dict:
     return entries
 
 
+def _routed_chunk(gen, dev):
+    """One FCDA chunk's routing at the training path's shapes, and the
+    plans the EP leg derives from it: ids of top-2 distinct experts of 8."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    scores = torch.rand((T_CHUNK, E), generator=gen, device=dev)
+    ids = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :TOP_K]
+    up = dsp.make_unified_plan(ids.to(torch.int32), E, 1, cap_send=T_CHUNK * TOP_K)
+    rows = T_CHUNK * TOP_K
+    R = -(-(rows + E * BLOCK_M) // BLOCK_M) * BLOCK_M
+    plan = dsp.recv_ragged_plan(up.counts, dsp.eids_from_counts(up.counts, rows),
+                                R, BLOCK_M)
+    return up, plan, R
+
+
+def _bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_kernels_phase() -> dict:
+    """Check and time the training path's four kernels at its shapes;
+    returns {kernel name: entry}."""
+    phase("kernels (training path)")
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.dispatch import invert_slots
+    from repro_torch.kernels import dispatch_cuda as dc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = torch.device("cuda")
+    up, plan, R = _routed_chunk(gen, dev)
+    rows = T_CHUNK * TOP_K
+    live = int(plan.total_rows)                   # rows this run's data fills
+    used = torch.unique(plan.block_to_expert[:live // BLOCK_M]).numel()
+    send_pos = invert_slots(up.send_slots, rows)
+    send_src = torch.where(send_pos >= 0, send_pos // TOP_K, -1).to(torch.int32)
+    recv_pos = invert_slots(plan.slots, R)
+    recv_src = torch.where(recv_pos >= 0, recv_pos, -1).to(torch.int32)
+    weights = torch.rand((T_CHUNK, TOP_K), generator=gen, device=dev)
+    weights = weights / weights.sum(-1, keepdim=True)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    w1 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w3 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w2 = randn((E, D_FF, D_MODEL), D_FF ** -0.5)
+    x_chunk = randn((T_CHUNK, D_MODEL))
+    x_rows = randn((rows, D_MODEL))
+    buf = ref.scatter_rows_ref(x_rows, recv_src, plan.total_rows)   # (R, d)
+    h = randn((R, D_FF)) * (torch.arange(R, device=dev) < live)[:, None]
+    b2e, total = plan.block_to_expert, plan.total_rows
+    wslot = torch.ones(R, device=dev)
+    el = 2                                     # bf16 bytes per element
+    # the ragged layout as a grouped GEMM's group ends: each expert's live
+    # rows lie in one run of row blocks, in ascending expert order
+    live_b2e = b2e[:live // BLOCK_M].long()
+    if not bool((live_b2e[1:] >= live_b2e[:-1]).all()):
+        raise SystemExit("the ragged plan's row blocks are not in expert order")
+    offs = (torch.bincount(live_b2e, minlength=E).cumsum(0) * BLOCK_M).to(torch.int32)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None:
+        print(f"torch {torch.__version__} has no torch._grouped_mm: ragged_matmul "
+              f"has no one-call yardstick here", flush=True)
+
+    # name -> list of shape cases; each case: (label, kernel fn, plain fn,
+    # fp32 inputs, library fn or None, bytes, flops, tolerance fp32)
+    cases = {
+        "scatter_rows": [(
+            f"R={rows} T={T_CHUNK} d={D_MODEL}", dc.scatter_rows,
+            ref.scatter_rows_ref, (x_chunk, send_src, rows),
+            # every row of the send buffer is live here, so index_select of
+            # the source rows is the same function on these inputs
+            lambda x, src, _: torch.index_select(x, 0, src),
+            el * 2 * rows * D_MODEL, 0, 0.0)],
+        "gather_combine": [
+            (f"T={T_CHUNK} K={TOP_K} d={D_MODEL} (EP combine)", dc.gather_combine,
+             ref.gather_combine_ref,
+             (x_rows, up.send_slots, weights),
+             # every slot is live at one peer: a weighted sum bag of K rows
+             lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
+                                                    per_sample_weights=w),
+             el * (T_CHUNK * TOP_K + T_CHUNK) * D_MODEL, 2 * T_CHUNK * TOP_K * D_MODEL,
+             1e-6),
+            (f"T={rows} K=1 d={D_MODEL} (fused backward dx)", dc.gather_combine,
+             ref.gather_combine_ref, (buf, plan.slots),
+             # every received row is live and K = 1: a row gather
+             lambda buf_, slots: torch.index_select(buf_, 0, slots[:, 0]),
+             el * 2 * rows * D_MODEL, 0, 0.0)],
+        "ragged_matmul": [
+            (f"({R}, {D_MODEL}) @ w1 ({D_MODEL}, {D_FF})", ragged_matmul,
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+             (buf, w1, b2e, total, BLOCK_M),
+             # the live rows as groups of a grouped GEMM (no rows past them)
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
+             el * (live * D_MODEL + used * D_MODEL * D_FF + R * D_FF),
+             2 * live * D_MODEL * D_FF, 1e-4),
+            (f"({R}, {D_FF}) @ w1^T ({D_FF}, {D_MODEL})",
+             lambda a, w, *r: ragged_matmul(a, w, *r, transpose_w=True),
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w.transpose(1, 2), *r[:2]),
+             (h, w1, b2e, total, BLOCK_M),
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w.transpose(1, 2),
+                                                         offs=offs)),
+             el * (live * D_FF + used * D_MODEL * D_FF + R * D_MODEL),
+             2 * live * D_MODEL * D_FF, 1e-4)],
+        "fused_moe": [(
+            f"T={rows} R={R} bm={BLOCK_M} E={E} d={D_MODEL} f={D_FF}", fused_moe,
+            lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
+                x, a, b, c, src, ws, bb, tot),
+            (x_rows, w1, w3, w2, recv_src, wslot, total, b2e), None,
+            el * (2 * rows * D_MODEL + 3 * used * D_MODEL * D_FF),
+            3 * 2 * live * D_MODEL * D_FF, 1e-4)],
+    }
+    replaces = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
+                "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
+                "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
+                "fused_moe": "src/repro/kernels/fused_moe.py:105"}
+    sources = {"scatter_rows": "dispatch.cu", "gather_combine": "dispatch.cu",
+               "ragged_matmul": "ragged_mlp.cu", "fused_moe": "fused_moe.cu"}
+    print(f"chunk routing: {live} of {R} ragged rows live, {used} experts used",
+          flush=True)
+    entries = {}
+    for name, shape_cases in cases.items():
+        shapes = []
+        for label, fn, plain, args32, library, nbytes, flops, tol32 in shape_cases:
+            argsb = tuple(a.bfloat16() if torch.is_tensor(a) and a.is_floating_point()
+                          else a for a in args32)
+            got32, want32 = fn(*args32), plain(*args32)
+            gotb, wantb = fn(*argsb), plain(*argsb)
+            torch.cuda.synchronize()
+            err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
+            ok = (_close(got32, want32, max(tol32, 1e-6)) and _close(gotb, wantb, TOL_BF16))
+            iters = 3 if flops > 1e11 else 10
+            ms = cuda_ms(lambda: fn(*argsb), iters=iters)
+            plain_ms = cuda_ms(lambda: plain(*argsb), iters=iters)
+            lib_ms = lib_err = None
+            if library is not None:
+                try:
+                    lib_out = library(*argsb)
+                except (RuntimeError, NotImplementedError) as exc:
+                    # a yardstick this PyTorch build does not offer at these
+                    # inputs: reported, and the kernel's checks go on
+                    print(f"{name} {label}: library call refused: "
+                          f"{str(exc).splitlines()[0][:200]}", flush=True)
+                else:
+                    # the yardstick must compute the same function (on the
+                    # rows it returns)
+                    lib_want = wantb[:lib_out.shape[0]]
+                    lib_err = _max_err(lib_out, lib_want)
+                    if not _close(lib_out, lib_want, TOL_BF16):
+                        raise SystemExit(f"{name}'s library yardstick disagrees with "
+                                         f"the plain version at {label}: {lib_err:.3e}")
+                    del lib_out, lib_want
+                    lib_ms = cuda_ms(lambda: library(*argsb), iters=iters)
+            bms, by = _bound(nbytes, flops)
+            row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib_ms}
+            shapes.append(row)
+            print(f"{name} {label}: {'ok' if ok else 'MISMATCH'} err bf16 {errb:.3e} "
+                  f"f32 {err32:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f"{'' if lib_err is None else f' (err {lib_err:.3e})'}, "
+                  f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
+                  flush=True)
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version at {label}")
+            del got32, want32, gotb, wantb, argsb
+        head = shapes[0]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": 0,
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shapes": shapes,
+        }
+    del w1, w3, w2, buf, h, x_rows, x_chunk
+    torch.cuda.empty_cache()
+    return entries
+
+
+def train_phase() -> dict:
+    """Drive the port's training entry point; returns the four kernels'
+    launch counts from this run."""
+    phase("train")
+    import math
+
+    import torch
+    from repro_torch.kernels import dispatch_cuda as dc
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer, state = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for r in trainer.log:
+        print(f"step {r['step']}: loss {r['loss']:.6f} (ce {r['ce']:.6f}, aux "
+              f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.4f}, schedule "
+              f"(chunks {r['chunks']}, depth {r['pipeline']}), {r['time_s']:.3f} s, "
+              f"{r['tgs']:.1f} tokens/s, max_load {r['max_load']:.0f}, "
+              f"drops {r['drops']:.0f}", flush=True)
+    s_pp = trainer.mact.history[-1]["s_pp"]
+    last = trainer.log[-1]
+    report = trainer.mact.memory_report(s_pp, last["chunks"], last["pipeline"])
+    print(f"train phase {wall:.1f} s (weights built on the card included); "
+          f"max_memory_allocated {peak / 1e9:.2f} GB against ~{PLAIN_TRAIN_GB:.0f} GB "
+          f"reckoned; MACT's model: static {report['static_gb'] * 2**30 / 1e9:.2f} GB "
+          f"+ activations {report['activation_gb'] * 2**30 / 1e9:.2f} GB = "
+          f"{report['total_gb'] * 2**30 / 1e9:.2f} GB, s'max {report['s_prime_max']:.0f}",
+          flush=True)
+    print(f"launches {launches} over {len(trainer.log)} steps", flush=True)
+    bad = [r for r in trainer.log
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad or len(trainer.log) != 4:
+        raise SystemExit(f"training gave non-finite losses or grad norms: {bad}")
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"{name} never launched on the training path")
+
+    # one more, warm step under the profiler: the step-time breakdown
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(1, state)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[2] for r in rows)
+    groups = {"fused_moe": ("fused_",), "ragged_matmul": ("ragged_matmul",),
+              "dispatch": ("scatter_rows", "gather_combine"),
+              "grouped (serving)": ("grouped_",)}
+    by_group = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
+                for g, keys in groups.items()}
+    print(f"profiled warm step: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{device_us / 1e3:.1f} ms (idle {100 - 100 * device_us / wall_us:.1f}%); "
+          + ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in by_group.items())
+          + f", everything else {(device_us - sum(by_group.values())) / 1e3:.1f} ms",
+          flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
+        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_phase() -> dict:
     """Drive the port's serving entry point; returns the kernels' launch
     counts from this run."""
@@ -309,10 +590,34 @@ def check_phase() -> None:
     if not np.isfinite(err) or err > 1e-3 or not same:
         raise SystemExit("the card disagrees with the CPU on the reduced config")
 
+    # two training steps from the same weights: kernels against plain versions
+    from repro_torch.training.step import make_train_state
+    from repro_torch.training.trainer import Trainer
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = DistContext(device=torch.device(dev), moe_strategy="ep_shardmap",
+                          moe_fused=True)
+        params = transformer.init_params(cfg, device="cpu", seed=2)
+        trainer = Trainer(cfg, ctx, seq_len=128, global_batch=2, lr=1e-3)
+        trainer.fit(2, make_train_state(_to(params, dev)))
+        runs[dev] = trainer
+    losses = {d: [r["loss"] for r in t.log] for d, t in runs.items()}
+    dloss = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    same_sched = (runs["cpu"].chunk_trace == runs["cuda"].chunk_trace
+                  and runs["cpu"].pipeline_trace == runs["cuda"].pipeline_trace)
+    print(f"reduced {cfg.name} fp32, 2 training steps: losses card {losses['cuda']} "
+          f"cpu {losses['cpu']}, max |card - cpu| = {dloss:.3e}; chunk traces "
+          f"{runs['cuda'].chunk_trace} / {runs['cpu'].chunk_trace}, pipeline traces "
+          f"{runs['cuda'].pipeline_trace} / {runs['cpu'].pipeline_trace}", flush=True)
+    if not same_sched or not dloss <= 1e-4:
+        raise SystemExit("the card disagrees with the CPU on the reduced training run")
+
 
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -329,8 +634,10 @@ def main() -> int:
     device_phase()
     build_phase()
     entries = kernels_phase()
+    entries.update(train_kernels_phase())
     launches = serve_phase()
     profile_phase()
+    launches.update(train_phase())
     check_phase()
     for name, n in launches.items():
         entries[name]["launches"] = n

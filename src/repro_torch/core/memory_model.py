@@ -1,11 +1,24 @@
-"""MemFine's serving memory model (paper section 3, Eq. 1-3, serving form).
+"""MemFine's memory model (paper section 3, Table 2, Eq. 1-3, 8-9).
 
-The port's copy of the part of the JAX package's ``core/memory_model.py``
-that serving admission needs, formula for formula.  Notation follows the
-paper's Table 1: h hidden size, a heads, h_d head dim, k_a kv heads, e_n
-experts, g_d dense-FFN and g_e expert-FFN widths.
+The port's copy of the JAX package's ``core/memory_model.py``, formula for
+formula: the training half that MACT inverts, and the serving form that
+admission uses.  Notation follows the paper's Table 1: s sequence length,
+s' tokens received by the MoE layer per device, h hidden size, a heads, h_d
+head dim, k_a kv heads, e_n experts, g_d dense-FFN and g_e expert-FFN
+widths, t/p/c/e/d tensor/pipeline/context/expert/data parallel sizes, b
+micro batch, v virtual stages.
 
-The scheduler admits a request only when
+Training (Eq. 2):
+
+    M_act = m_g/(t*c) * D_t*b * [ s*(5h + a*h_d + 2*k_a*h_d + e_n)
+                                  + s'*(2h + 2*g_e) ]
+
+FCDA divides the s' term by the chunk count c (with ``pipeline_depth``
+chunks live at once: s' * min(depth, c)/c); the fused expert leg drops its
+2h dispatch-buffer half.  Eq. (8) inverts the model for the largest
+admissible s', Eq. (9) gives the chunk count c = ceil(depth * s''/s'_max).
+
+Serving: the scheduler admits a request only when
 
     M_weights + (n+1) * M_cache(L) + max(M_act_decode, M_act_prefill)
         <= alpha * M_GPU                                   (Eq. 3, serving)
@@ -16,6 +29,7 @@ with M_act's MoE term at the dropless structural worst case s' = e_n * tokens
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -62,11 +76,52 @@ def shared_act_bytes(dims: LayerDims, s: int, par: Parallelism,
     return dtype_bytes * par.b * s * per_tok / (par.t * par.c)
 
 
+def m_g(par: Parallelism, r_pp: int = 0, full_recompute: bool = False) -> int:
+    """Number of stored layer-activation copies (paper section 3)."""
+    if full_recompute:
+        return 1
+    return max(1, par.v * par.p + par.p - 2 * r_pp - 1)
+
+
+def _moe_per_token(dims: LayerDims, fused: bool) -> float:
+    """Per-received-token MoE activation width (Table 2's 2h + 2g_e).  The
+    2h half is the (R, d) dispatch buffer's round trip, which the fused
+    expert leg never builds, so under ``fused`` only the 2g_e backward
+    recompute transient remains."""
+    return (0 if fused else 2 * dims.h) + 2 * dims.g_e
+
+
 def moe_act_bytes(dims: LayerDims, s_prime: float, par: Parallelism,
-                  dtype_bytes: int = 2) -> float:
-    """The received-token-proportional MoE term of Table 2 (2h + 2g_e)."""
-    return (dtype_bytes * par.b * s_prime * (2 * dims.h + 2 * dims.g_e)
+                  dtype_bytes: int = 2, *, fused: bool = False) -> float:
+    """The received-token-proportional MoE term of Table 2."""
+    return (dtype_bytes * par.b * s_prime * _moe_per_token(dims, fused)
             / (par.t * par.c))
+
+
+def activation_bytes(dims: LayerDims, s: int, s_prime: float, par: Parallelism,
+                     *, copies: int = 1, chunks: int = 1,
+                     dtype_bytes: int = 2, pipeline_depth: int = 1,
+                     fused: bool = False) -> float:
+    """Eq. (2) peak activation, with FCDA chunking dividing the MoE term
+    and ``min(pipeline_depth, chunks)`` chunks live at once."""
+    shared = shared_act_bytes(dims, s, par, dtype_bytes)
+    live = min(max(pipeline_depth, 1), chunks)
+    moe = moe_act_bytes(dims, s_prime, par, dtype_bytes,
+                        fused=fused) * live / chunks
+    return copies * (shared + moe)
+
+
+def worst_case_s_prime(s: int, par: Parallelism, topk: int = 1) -> int:
+    """Theoretical peak received tokens: every token-slot in the EP group
+    lands on one device (paper section 3: s' approaches e*s; with top-k
+    slots, e*s*k)."""
+    return par.e * par.b * s * topk
+
+
+#: bytes of training state per parameter the model charges, Megatron-style
+#: BF16 mixed precision: bf16 weight (2) + fp32 grad (4) + fp32 master (4)
+#: + Adam m, v (8)
+TRAIN_STATE_BYTES = 18
 
 
 #: serving static memory is weight-only: bf16 weights, no grads or optimizer
@@ -120,10 +175,66 @@ def param_counts(cfg: ModelConfig, par: Parallelism) -> dict[str, float]:
     return counts
 
 
+def static_bytes(cfg: ModelConfig, par: Parallelism,
+                 bytes_per_param: float = TRAIN_STATE_BYTES,
+                 per_stage: bool = True) -> float:
+    """Eq. (1): per-device static memory.  ``per_stage`` divides layer
+    params by the pipeline size (embedding counted on the first stage)."""
+    counts = param_counts(cfg, par)
+    layer_params = sum(v for k, v in counts.items() if k not in ("embed", "lm_head"))
+    if per_stage:
+        layer_params /= par.p
+    return (counts["embed"] + layer_params) * bytes_per_param
+
+
 def total_params(cfg: ModelConfig) -> float:
     """Global parameter count N."""
     return sum(param_counts(cfg, Parallelism()).values())
 
+
+# ---------------------------------------------------------------------------
+# MACT equations (Eq. 3, 8, 9)
+# ---------------------------------------------------------------------------
+
+def fits(static: float, act: float, hw: HardwareProfile) -> bool:
+    """Eq. (3): M_sta + M_act <= alpha * M_GPU."""
+    return static + act <= hw.alpha * hw.hbm_bytes
+
+
+def replica_weight_bytes(cfg: ModelConfig, extra_slots_per_peer: int,
+                         par: Parallelism,
+                         bytes_per_param: float = WEIGHT_ONLY_BYTES) -> float:
+    """Per-device weight bytes of hot-expert replica slots (0 without
+    placement, which the port does not run yet)."""
+    if cfg.moe is None or extra_slots_per_peer <= 0:
+        return 0.0
+    n_moe = sum(1 for spec in cfg.layer_specs() if spec.ffn == "moe")
+    per_slot = 3 * cfg.d_model * cfg.moe.d_ff_expert / par.t
+    return extra_slots_per_peer * per_slot * bytes_per_param * n_moe / par.p
+
+
+def s_prime_max(dims: LayerDims, s: int, par: Parallelism, hw: HardwareProfile,
+                static: float, *, copies: int = 1, dtype_bytes: int = 2,
+                fused: bool = False, replica_bytes: float = 0.0) -> float:
+    """Eq. (8): the largest per-device received-token count that fits."""
+    budget = (hw.alpha * hw.hbm_bytes - static - replica_bytes
+              - copies * shared_act_bytes(dims, s, par, dtype_bytes))
+    denom = (copies * dtype_bytes * par.b * _moe_per_token(dims, fused)
+             / (par.t * par.c))
+    return budget / denom
+
+
+def optimal_chunks(s_pp: float, s_max: float, pipeline_depth: int = 1) -> int:
+    """Eq. (9): c = ceil(depth * s'' / s'_max), never fewer than ``depth``
+    chunks; a sentinel large value when even one token cannot fit."""
+    if s_max <= 0:
+        return 1 << 30
+    return max(pipeline_depth, 1, math.ceil(pipeline_depth * s_pp / s_max))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 def expert_weight_bytes(cfg: ModelConfig,
                         dtype_bytes: float = WEIGHT_ONLY_BYTES) -> float:

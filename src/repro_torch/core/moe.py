@@ -1,40 +1,71 @@
-"""The MemFine MoE layer: router + FCDA chunking + the local expert path.
+"""The MemFine MoE layer: router + FCDA chunking + a selectable strategy.
 
-The port runs the JAX package's ``tp_gspmd`` / local strategy: experts on
-the device, routing and dispatch planned per batch row (each row sorts only
-its own token-slots), the expert FFN on the grouped CUDA kernels.  The EP
-all-to-all strategy and the dense oracle are not ported yet.
+Strategies, as in the JAX package:
+
+* ``tp_gspmd`` -- the local path: experts on the device, routing and
+  dispatch planned per batch row (each row sorts only its own token-slots),
+  the expert FFN on the grouped CUDA kernels.  Serving; the grouped kernels
+  have no backward, so on the card it does not train.
+* ``ep_shardmap`` -- the EP path (core/ep.py): per FCDA chunk, one plan,
+  the dispatch exchange, the local expert leg, the return exchange and the
+  combine, each chunk recomputed in the backward (Eq. 7).  With
+  ``moe_fused`` the expert leg is the fused kernel; this is the path that
+  trains.  It runs at one EP peer (``ep_group=None``).
+* ``dense`` -- every expert on every token, masked combine: the tests'
+  numerical oracle.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import dispatch as dsp
 from repro_torch.core.chunking import chunked_map
+from repro_torch.core.ep import moe_ffn_ep
 from repro_torch.core.router import route
 from repro_torch.kernels.ops import expert_ffn
+from repro_torch.kernels.ref import expert_ffn_ref
 
 
 @dataclass(frozen=True)
 class DistContext:
     """How the current step runs; plumbed through the model."""
     device: torch.device = torch.device("cuda")
-    moe_chunks: int = 1                    # FCDA chunk count
+    ep_group: Optional[object] = None      # EP process group; None = one peer
+    moe_chunks: int = 1                    # FCDA chunk count (MACT-selected)
+    pipeline_chunks: int = 1               # FCDA schedule depth: 1 = sequential
+                                           # loop, >= 2 = waves of that many
+                                           # chunks (EP path)
+    remat_chunks: bool = True              # Eq. (7) per-chunk recomputation
     moe_strategy: str = "auto"             # overrides MoEConfig.strategy
+    moe_ragged: bool = False               # MegaBlocks-style flat expert buffers
+    moe_fused: bool = False                # the fused expert leg over the ragged
+                                           # layout (kernels/fused_moe.py)
+    ragged_block: int = 128                # ragged-layout row-block size
+
+
+_STRATEGIES = ("tp_gspmd", "ep_shardmap", "dense")
 
 
 def resolve_strategy(cfg: MoEConfig, ctx: DistContext) -> str:
-    """The port has one device and no mesh, so "auto" resolves to the local
-    per-row path, as the JAX package resolves it without a mesh."""
+    """The strategy asked for by the context (else the config).  "auto"
+    resolves to the local per-row path, as the JAX package resolves it
+    without a mesh; "ep_shardmap" is taken when asked for."""
     want = ctx.moe_strategy if ctx.moe_strategy != "auto" else cfg.strategy
-    if want in ("auto", "tp_gspmd"):
+    if want == "auto":
         return "tp_gspmd"
-    raise NotImplementedError(f"MoE strategy {want!r} is not ported yet; "
-                              "the port runs the local 'tp_gspmd' path")
+    if want not in _STRATEGIES:
+        raise ValueError(f"unknown MoE strategy {want!r}; one of {_STRATEGIES}")
+    return want
+
+
+def is_ep(cfg: Optional[MoEConfig], ctx: DistContext) -> bool:
+    """Whether MoE layers run the EP strategy under ``ctx``."""
+    return cfg is not None and resolve_strategy(cfg, ctx) == "ep_shardmap"
 
 
 def _moe_ffn_rows(params: dict, x: torch.Tensor, cfg: MoEConfig,
@@ -69,9 +100,28 @@ def _moe_ffn_rows(params: dict, x: torch.Tensor, cfg: MoEConfig,
                  "drops": plan.drops.float()}
         return y.reshape(B, t_c, d), stats
 
-    y, stats = chunked_map(chunk_fn, x, ctx.moe_chunks, dim=1)
+    y, stats = chunked_map(chunk_fn, x, ctx.moe_chunks, dim=1,
+                           remat=ctx.remat_chunks)
     stats["aux_loss"] = stats["aux_loss"] / (B * ctx.moe_chunks)
     return y, stats
+
+
+def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
+                   ctx: DistContext):
+    """Every expert on every token, masked combine (plain PyTorch): the
+    tests' numerical oracle."""
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    r = route(params["router"], x2, cfg)
+    xe = x2[None].expand((cfg.num_experts,) + x2.shape)
+    h = expert_ffn_ref(xe, params["w1"], params["w3"], params["w2"])   # (E, T, d)
+    onehot = (r.expert_idx[..., None].long()
+              == torch.arange(cfg.num_experts, device=x.device)).to(h.dtype)
+    w = (onehot * r.weights[..., None].to(h.dtype)).sum(1)            # (T, E)
+    y = torch.einsum("te,etd->td", w, h)
+    stats = {"aux_loss": r.aux_loss, "load": r.load.float(),
+             "drops": torch.zeros((), dtype=torch.float32, device=x.device)}
+    return y.reshape(B, S, d), stats
 
 
 def _shared_expert(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -92,8 +142,18 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, ctx: DistContext):
     * ``aux_loss`` -- float32 scalar, the mean per-chunk Switch auxiliary
       loss, averaged over chunks and batch rows.
     """
-    resolve_strategy(cfg, ctx)
-    y, stats = _moe_ffn_rows(params, x, cfg, ctx)
+    strategy = resolve_strategy(cfg, ctx)
+    if strategy == "ep_shardmap":
+        y, stats = moe_ffn_ep(params, x, cfg, ep_group=ctx.ep_group,
+                              chunks=ctx.moe_chunks, remat=ctx.remat_chunks,
+                              ragged=ctx.moe_ragged, pipeline=ctx.pipeline_chunks,
+                              ragged_block=ctx.ragged_block, fused=ctx.moe_fused)
+        stats = dict(stats)
+        stats["aux_loss"] = stats["aux_loss"] / ctx.moe_chunks
+    elif strategy == "tp_gspmd":
+        y, stats = _moe_ffn_rows(params, x, cfg, ctx)
+    else:
+        y, stats = _moe_ffn_dense(params, x, cfg, ctx)
     if "shared" in params:
         y = y + _shared_expert(params, x)
     return y, stats

@@ -48,3 +48,11 @@ def route(params: dict, x: torch.Tensor, cfg: MoEConfig) -> RouterOut:
     aux = E * torch.sum(f * probs.mean(-2), -1) * (1.0 / max(cfg.top_k, 1))
     return RouterOut(expert_idx.to(torch.int32), weights.to(x.dtype),
                      aux.float(), load)
+
+
+def update_bias(bias: torch.Tensor, load: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """DeepSeek loss-free balancing: nudge under-loaded experts' bias up and
+    over-loaded experts' bias down.  Runs outside the gradient path."""
+    load = load.float()
+    err = load.mean() - load                                    # >0 if under-loaded
+    return bias + cfg.bias_update_rate * torch.sign(err)

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Each source ``csrc/<name>.cu`` compiles into a shared library with a plain C
+Each source ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``)
+compiles into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), named
 by a digest of its source and flags, in ``_build/`` beside this file (listed
 in ``.gitignore``).  A library is built at its first use in a process, or by
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("grouped_mlp",)
+SOURCES = ("grouped_mlp", "dispatch", "ragged_mlp", "fused_moe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +45,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's file, named by a digest of its source, the shared
+    headers it may include and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -5,18 +5,17 @@ expert FFN, x (E, M, K) against stacked expert weights (E, K, N).  On a CUDA
 tensor they launch the hand-written kernels of ``csrc/grouped_mlp.cu``
 (built by ``kernels/build.py``); on a CPU tensor they compute the plain
 version from ``kernels/ref.py``.  There is no other path: a failed build or
-launch raises.  Each wrapper counts its kernel launches in ``.launches``.
+launch raises, and so does a launch under autograd on operands that require
+grad (the kernels have no backward; training takes the fused EP leg).
+Each wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import _cuda, ref
 
-_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _VEC = 8          # K and N in multiples of one 16-byte vector of bf16
 _MAX_M = 64 * 65535   # 64-row M tiles on the grid's y axis
 
@@ -35,9 +34,9 @@ def _check(x: torch.Tensor, ws: tuple) -> tuple[int, int, int, int]:
         if w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"weights must share x's dtype and device "
                              f"({x.dtype}, {x.device}); got {w.dtype}, {w.device}")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in _cuda.SUFFIX:
         raise ValueError(f"unsupported dtype {x.dtype}; the kernels take "
-                         f"{sorted(str(d) for d in _SUFFIX)}")
+                         f"{sorted(str(d) for d in _cuda.SUFFIX)}")
     return E, M, K, N
 
 
@@ -45,31 +44,19 @@ def _launch(wrapper, x: torch.Tensor, ws: tuple, dims) -> torch.Tensor:
     """Launch ``wrapper``'s kernel on x's current stream and count it."""
     op = wrapper.__name__
     E, M, K, N = dims
-    if x.device.type != "cuda":
-        raise ValueError(f"{op}: tensors must be on the CPU or a CUDA device; "
-                         f"got {x.device}")
+    _cuda.no_autograd(op, (x, *ws),
+                      "the capacity-layout expert FFN is for serving; train "
+                      "through the EP strategy's fused expert leg "
+                      "(DistContext(moe_strategy='ep_shardmap', moe_fused=True))")
     if K % _VEC or N % _VEC or M > _MAX_M:
         raise ValueError(f"{op}: K={K} and N={N} must be multiples of {_VEC} "
                          f"and M={M} at most {_MAX_M}")
-    for t in (x, *ws):
-        if not t.is_contiguous():
-            raise ValueError(f"{op}: operands must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{op}: operands must be 16-byte aligned")
+    _cuda.operands(op, (x, *ws), x.dtype, x.device)
     out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or K == 0:
         return out.zero_()
-    lib = build.library("grouped_mlp")
-    fn = getattr(lib, f"{op}_{_SUFFIX[x.dtype]}")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (len(ws) + 2) + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):    # the launch goes to the current device
-        rc = fn(x.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr(),
-                E, M, K, N, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    _cuda.launch("grouped_mlp", f"{op}_{_cuda.SUFFIX[x.dtype]}",
+                 [x, *ws, out, E, M, K, N], x.device)
     wrapper.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """One transformer layer: attention mixer + FFN (dense | MoE | none).
 
-The serving forms of a layer: the cache-building prefill (``apply_layer``),
-single-token decode (``apply_layer_decode``) and C-token cache extension
+The training forward and the serving forms of a layer: the forward and the
+cache-building prefill (``apply_layer``), single-token decode
+(``apply_layer_decode``) and C-token cache extension
 (``apply_layer_extend``).  Decode and extension carry one position per batch
 row (``pos``: (B,) int), so every row of a batch -- every slot of the
 serving scheduler's pool -- has its own RoPE positions, ring write cursor
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.moe import DistContext, moe_ffn
@@ -224,23 +226,33 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, ctx: DistContext, positions: torch.Tensor, *,
                 causal: bool = True, cache_len: Optional[int] = None,
                 cache_dtype=None):
-    """Prefill.  Returns (x, stats), or (x, stats, cache) when ``cache_len``
-    is given: the single-pass prefill builds the layer's decode cache from
-    the K/V this pass computes."""
+    """Train/prefill.  Returns (x, stats), or (x, stats, cache) when
+    ``cache_len`` is given: the single-pass prefill builds the layer's decode
+    cache from the K/V this pass computes.
+
+    Under autograd without a cache, ``remat_policy`` "full" or "memfine"
+    wraps the layer in a non-reentrant checkpoint (Megatron full
+    recomputation); the MoE's per-chunk checkpoints nest inside it, as the
+    JAX package's nested ``jax.checkpoint``s do."""
     _require_attn(spec)
-    build_cache = cache_len is not None
-    h = apply_norm(params["norm1"], x, cfg.norm)
-    out = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx, causal,
-                     return_kv=build_cache)
-    if build_cache:
-        h, (k, v) = out
+    if cache_len is not None:
+        h = apply_norm(params["norm1"], x, cfg.norm)
+        h, (k, v) = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx,
+                               causal, return_kv=True)
         cache = {"attn": build_attn_cache(k, v, spec, cache_len,
                                           cache_dtype or x.dtype)}
-    else:
-        h = out
-    x, stats = _ffn(params, x + h, spec, cfg, ctx)
-    stats = stats if stats is not None else zero_stats(cfg, x.device)
-    return (x, stats, cache) if build_cache else (x, stats)
+        x, stats = _ffn(params, x + h, spec, cfg, ctx)
+        return x, stats if stats is not None else zero_stats(cfg, x.device), cache
+
+    def layer_fn(x):
+        h = apply_norm(params["norm1"], x, cfg.norm)
+        h = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx, causal)
+        x, stats = _ffn(params, x + h, spec, cfg, ctx)
+        return x, stats if stats is not None else zero_stats(cfg, x.device)
+
+    if cfg.remat_policy in ("full", "memfine") and torch.is_grad_enabled():
+        return checkpoint(layer_fn, x, use_reentrant=False)
+    return layer_fn(x)
 
 
 def apply_layer_decode(params: dict, x: torch.Tensor, cache: dict,

@@ -1,4 +1,5 @@
-"""Decoder-only transformer over LayerSpec patterns: init, prefill, decode.
+"""Decoder-only transformer over LayerSpec patterns: init, the training
+forward and prefill, decode.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (unless the
 embeddings are tied) and ``layers``, one dict per layer in layer order.  The

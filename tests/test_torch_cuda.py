@@ -1,4 +1,4 @@
-"""The grouped expert-FFN CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 Needs no JAX.  The tests marked ``cuda`` need an NVIDIA GPU and skip without
 one; on the card run them with
@@ -11,14 +11,20 @@ checks and CPU path, which hold on any machine.
 
 Tolerances: fp32 1e-5 (the same products summed in another order, weights
 at the model's init scale); bf16 1e-2 (both sides sum in fp32 and round once
-to bf16, so they differ by at most one bf16 ulp, 2**-7 relative).
+to bf16, so they differ by at most one bf16 ulp, 2**-7 relative).  The
+dispatch kernels move and scale rows with the plain version's rounding
+points, so they are held to equality.
 """
 
 import pytest
 import torch
 
+from repro_torch.core import dispatch as dsp
+from repro_torch.kernels import dispatch_cuda as dc
 from repro_torch.kernels import grouped_mlp as gm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_moe import fused_moe
+from repro_torch.kernels.ragged_mlp import ragged_matmul
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (E, M, K, N): M edges below, at and past the 64-row tile; N and K edges
@@ -97,6 +103,111 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         gm.grouped_matmul(x.transpose(1, 2).contiguous().transpose(1, 2), w)
 
 
+@pytest.mark.cuda
+def test_grouped_kernels_refuse_autograd(cuda):
+    """On the card the grouped kernels have no backward: under autograd on
+    operands that require grad they raise instead of dropping the path."""
+    x, w = _inputs(2, 4, 64, 64, 1, torch.float32, cuda)
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused expert leg"):
+        gm.grouped_matmul(x, w)
+    with torch.no_grad():
+        gm.grouped_matmul(x, w)                # serving: no autograd, fine
+
+
+def _ragged_case(T, K, E, d, f, bm, dtype, device, seed=0, skew=False):
+    """A routed ragged layout (the receiver's plan) with tokens, weights at
+    the model's init scale and per-row combine weights."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if skew:
+        ids = torch.where(torch.rand((T, K), generator=g) < 0.7, 0,
+                          torch.randint(0, E, (T, K), generator=g))
+        ids[:, 1:] = (ids[:, :1] + 1 + ids[:, 1:] % (E - 1)) % E if K > 1 else ids[:, 1:]
+    else:
+        ids = torch.stack([torch.randperm(E, generator=g)[:K] for _ in range(T)])
+    R = -(-(T * K + E * bm) // bm) * bm
+    plan = dsp.make_ragged_plan(ids.to(torch.int32), E, R, bm)
+    pos = dsp.invert_slots(plan.slots, R)
+    src = torch.where(pos >= 0, pos // K, -1).to(torch.int32)
+    wtk = torch.rand((T, K), generator=g)
+    wslot = torch.where(pos >= 0, wtk.reshape(-1)[pos.clamp_min(0).long()], 0.0)
+    x = torch.randn((T, d), generator=g)
+    w1, w3 = (torch.randn((E, d, f), generator=g) * d ** -0.5 for _ in range(2))
+    w2 = torch.randn((E, f, d), generator=g) * f ** -0.5
+    floats = [t.to(device=device, dtype=dtype) for t in (x, w1, w3, w2, wslot, wtk)]
+    ints = [t.to(device) for t in (plan.slots, plan.block_to_expert,
+                                   plan.total_rows, src)]
+    return floats, ints, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,d", [(24, 2, 16), (64, 1, 256), (33, 2, 72)])
+def test_dispatch_kernels_match_plain(cuda, T, K, d, dtype):
+    (x, _, _, _, wslot, wtk), (slots, _, total, src), R = _ragged_case(
+        T, K, 4, d, 8, 8, dtype, cuda)
+    before = (dc.scatter_rows.launches, dc.gather_combine.launches)
+    for w in (None, wslot):
+        buf = dc.scatter_rows(x, src, total, w)
+        torch.testing.assert_close(buf, ref.scatter_rows_ref(x, src, total, w),
+                                   rtol=0, atol=0)
+    for w in (None, wtk):
+        torch.testing.assert_close(dc.gather_combine(buf, slots, w),
+                                   ref.gather_combine_ref(buf, slots, w),
+                                   rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert (dc.scatter_rows.launches, dc.gather_combine.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,E,d,f,bm,skew", [(24, 2, 4, 16, 32, 8, False),
+                                               (96, 2, 4, 64, 136, 64, True),
+                                               (200, 2, 8, 128, 256, 128, True)])
+def test_ragged_and_fused_kernels_match_plain(cuda, T, K, E, d, f, bm, skew, dtype):
+    (x, w1, w3, w2, wslot, _), (slots, b2e, total, src), R = _ragged_case(
+        T, K, E, d, f, bm, dtype, cuda, seed=T, skew=skew)
+    buf = ref.scatter_rows_ref(x, src, total)
+    before = (ragged_matmul.launches, fused_moe.launches)
+    for w, a, trans in ((w1, buf, False), (w2, buf, True)):
+        got = ragged_matmul(a, w, b2e, total, bm, transpose_w=trans)
+        want = ref.ragged_matmul_ref(a, w.transpose(1, 2) if trans else w, b2e, total)
+        _assert_close(got, want, dtype)
+        assert (got[int(total):] == 0).all()
+    for w in (None, wslot):
+        got = fused_moe(x, w1, w3, w2, src, w, total, b2e)
+        want = ref.fused_moe_rows_ref(x, w1, w3, w2, src, w, b2e, total)
+        assert got.dtype == dtype and got.shape == x.shape
+        _assert_close(got, want, dtype)
+    torch.cuda.synchronize()
+    assert (ragged_matmul.launches, fused_moe.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    """The fused leg's forward and gradients on the card's kernels against
+    the same Functions on the CPU's plain versions, fp32."""
+    (x, w1, w3, w2, _, wtk), (slots, b2e, total, _), _ = _ragged_case(
+        48, 2, 4, 64, 128, 8, torch.float32, "cpu", skew=True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, w1, w3, w2, wtk)]
+        y = ops.moe_ffn(*leaves[:4], slots.to(dev), b2e.to(dev), total.to(dev),
+                        leaves[4], block_m=8)
+        (y.float() ** 2).sum().backward()
+        outs[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_training_on_the_local_path_raises_on_the_card(cuda):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no backward"):
+        train.main(["--arch", "mixtral-8x7b", "--smoke", "--steps", "1"])
+
+
 # -- any machine ------------------------------------------------------------
 
 def test_wrappers_check_shapes_and_types():
@@ -119,3 +230,37 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     torch.testing.assert_close(gm.grouped_matmul(x, w1),
                                ref.grouped_matmul_ref(x, w1), rtol=0, atol=0)
     assert (gm.grouped_swiglu.launches, gm.grouped_matmul.launches) == before
+
+
+def test_new_kernels_take_the_plain_version_on_the_cpu():
+    (x, w1, w3, w2, wslot, wtk), (slots, b2e, total, src), _ = _ragged_case(
+        24, 2, 4, 16, 32, 8, torch.float32, "cpu")
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe)
+    before = [c.launches for c in counters]
+    buf = dc.scatter_rows(x, src, total, wslot)
+    torch.testing.assert_close(buf, ref.scatter_rows_ref(x, src, total, wslot),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dc.gather_combine(buf, slots, wtk),
+                               ref.gather_combine_ref(buf, slots, wtk), rtol=0, atol=0)
+    torch.testing.assert_close(ragged_matmul(buf, w1, b2e, total, 8),
+                               ref.ragged_matmul_ref(buf, w1, b2e, total), rtol=0, atol=0)
+    torch.testing.assert_close(fused_moe(x, w1, w3, w2, src, wslot, total, b2e),
+                               ref.fused_moe_rows_ref(x, w1, w3, w2, src, wslot, b2e,
+                                                      total), rtol=0, atol=0)
+    assert [c.launches for c in counters] == before
+
+
+def test_new_wrappers_check_their_arguments():
+    (x, w1, w3, w2, wslot, _), (slots, b2e, total, src), R = _ragged_case(
+        24, 2, 4, 16, 32, 8, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="weights of shape"):
+        dc.scatter_rows(x, src, total, wslot[:-1])
+    with pytest.raises(ValueError, match="do not match"):
+        ragged_matmul(x, w1[:, :8], b2e, total, 8)
+    with pytest.raises(ValueError, match="blocks"):
+        ragged_matmul(x, w1, b2e, total, 8)          # T rows, not the R of b2e
+    with pytest.raises(ValueError, match="do not match"):
+        fused_moe(x, w1, w3, w1, src, wslot, total, b2e)
+    with pytest.raises(ValueError, match="divide or be a multiple"):
+        from repro_torch.kernels.ragged_mlp import row_tile
+        row_tile(48)

@@ -101,11 +101,23 @@ def test_moe_ffn_matches_jax(B, S, chunks, mode):
 
 
 def test_unported_strategies_raise():
+    """EP, dense and local resolve; an unknown strategy is refused, and the
+    EP options still to be ported (the non-fused ragged leg, EP across
+    ranks) raise."""
     cfg = get_config("mixtral-8x7b").reduced().moe
-    for strategy in ("ep_shardmap", "dense"):
+    for strategy in ("ep_shardmap", "dense", "tp_gspmd"):
+        assert tmoe.resolve_strategy(
+            cfg, tmoe.DistContext(device=CPU, moe_strategy=strategy)) == strategy
+    with pytest.raises(ValueError, match="unknown MoE strategy"):
+        tmoe.resolve_strategy(cfg, tmoe.DistContext(device=CPU, moe_strategy="tp"))
+    x = torch.zeros((1, 4, 256))
+    params = {"router": {"w": torch.zeros((256, 4)), "bias": torch.zeros(4)},
+              **{k: torch.zeros((4, 256, 512) if k != "w2" else (4, 512, 256))
+                 for k in ("w1", "w3", "w2")}}
+    for kw in ({"moe_ragged": True}, {"ep_group": object(), "moe_fused": True}):
         with pytest.raises(NotImplementedError):
-            tmoe.resolve_strategy(cfg, tmoe.DistContext(device=CPU,
-                                                        moe_strategy=strategy))
+            tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
+                device=CPU, moe_strategy="ep_shardmap", **kw))
 
 
 def test_bridge_unstacks_scanned_periods():
