@@ -11,9 +11,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               all started together.
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (serving: the grouped kernels;
-              training: dispatch, ragged matmul, fused MoE), in fp32 and
-              bf16, and timed beside the plain version, a one-call PyTorch
-              yardstick where there is one, and the card's bound.
+              training: dispatch, ragged matmul and SwiGLU, fused MoE;
+              attention: flash attention at Mixtral-8x7B's heads), in fp32
+              and bf16, and timed beside the plain version, a one-call
+              PyTorch yardstick where there is one, and the card's bound.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace; every request must finish with finite logits
@@ -26,11 +27,18 @@ Phases, each printing its own lines; any failure exits non-zero:
               of 2 x 2048 tokens on the EP strategy at one peer with the
               fused expert leg, MACT choosing the schedule; every loss and
               grad norm must be finite and every kernel of the path must
-              have launched.  Then one more step under torch.profiler.
-7. check   -- the reduced Mixtral config in fp32 on the card against the
+              have launched.  Then one more step under torch.profiler, and
+              the peak of one forward + backward against MACT's modeled
+              activation bytes, at MACT's schedule and unchunked.
+7. train (ragged leg) -- the same model and steps through Trainer, built as
+              launch/train.py builds it, on the three-launch ragged leg
+              (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
+              fused_moe must not launch.  The same profile and peaks (Eq. 2
+              with the dispatch buffer's term), and at depth 1 too.
+8. check   -- the reduced Mixtral config in fp32 on the card against the
               same weights on the CPU: prefill logits and greedy token
-              streams must agree, and 2 training steps must give the same
-              schedules and losses.
+              streams must agree, and 2 training steps on each leg must give
+              the same schedules and losses.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -47,9 +55,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: 3.35 TB/s HBM3, 989 TFLOP/s dense bf16
+# H100 SXM data sheet: 3.35 TB/s HBM3, 989 TFLOP/s dense bf16, 67 TFLOP/s
+# fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # (E, M, K, N) of each kernel at decode (4 slots folded into M) and at a
 # prefill chunk (the trace's 16 tokens; 32 as a second chunk size)
@@ -66,6 +76,15 @@ TRAIN_ARGS = ["--arch", "mixtral-8x7b", "--layers", "2", "--ep", "--fused",
 # cap_send = 2 x 2048 = 4096 sent rows, R = 4096 + 8 x 128 = 5120 ragged rows
 T_CHUNK, TOP_K, BLOCK_M = 2048, 2, 128
 PLAIN_TRAIN_GB = 41.0     # the reckoned peak: 38 GB of train state + activations
+RAGGED_STEPS = 4
+
+# attention at Mixtral-8x7B's heads (32 query heads, KV repeated, head dim
+# 128, sliding window 4096): a 2 x 2048-token step's prefill, where the
+# window does not cut, and one 8192-token sequence, where it does
+# (BH, S, causal, window)
+ATTN_SHAPES = ((64, 2048, True, 4096), (32, 8192, True, 4096))
+HEAD_DIM = 128
+TOL_ATTN_F32 = 2e-5     # the JAX package's tolerance for its own kernel
 
 SERVE_ARGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--requests", "8",
               "--max-slots", "4", "--prompt-lens", "16,32,48,64",
@@ -223,13 +242,13 @@ def _routed_chunk(gen, dev):
     return up, plan, R
 
 
-def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def train_kernels_phase() -> dict:
-    """Check and time the training path's four kernels at its shapes;
+    """Check and time the training paths' five kernels at their shapes;
     returns {kernel name: entry}."""
     phase("kernels (training path)")
     import torch
@@ -238,7 +257,7 @@ def train_kernels_phase() -> dict:
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_moe import fused_moe
-    from repro_torch.kernels.ragged_mlp import ragged_matmul
+    from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = torch.device("cuda")
@@ -317,6 +336,13 @@ def train_kernels_phase() -> dict:
                                                          offs=offs)),
              el * (live * D_FF + used * D_MODEL * D_FF + R * D_MODEL),
              2 * live * D_MODEL * D_FF, 1e-4)],
+        "ragged_swiglu": [(
+            f"({R}, {D_MODEL}) @ w1, w3 ({D_MODEL}, {D_FF})", ragged_swiglu,
+            lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
+            (buf, w1, w3, b2e, total, BLOCK_M),
+            None,                      # no one PyTorch call computes it
+            el * (live * D_MODEL + 2 * used * D_MODEL * D_FF + R * D_FF),
+            2 * 2 * live * D_MODEL * D_FF, 1e-4)],
         "fused_moe": [(
             f"T={rows} R={R} bm={BLOCK_M} E={E} d={D_MODEL} f={D_FF}", fused_moe,
             lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
@@ -328,9 +354,11 @@ def train_kernels_phase() -> dict:
     replaces = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
                 "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
                 "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
+                "ragged_swiglu": "src/repro/kernels/ragged_mlp.py:131",
                 "fused_moe": "src/repro/kernels/fused_moe.py:105"}
     sources = {"scatter_rows": "dispatch.cu", "gather_combine": "dispatch.cu",
-               "ragged_matmul": "ragged_mlp.cu", "fused_moe": "fused_moe.cu"}
+               "ragged_matmul": "ragged_mlp.cu", "ragged_swiglu": "ragged_mlp.cu",
+               "fused_moe": "fused_moe.cu"}
     print(f"chunk routing: {live} of {R} ragged rows live, {used} experts used",
           flush=True)
     entries = {}
@@ -394,12 +422,201 @@ def train_kernels_phase() -> dict:
     return entries
 
 
+def attention_kernels_phase() -> dict:
+    """Check and time flash attention at Mixtral-8x7B's attention shapes; no
+    model calls it (as in the JAX package), so it has no launches on a
+    path.  Returns {"flash_attention": entry}."""
+    phase("kernels (attention)")
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = torch.device("cuda")
+    shapes = []
+    for BH, S, causal, window in ATTN_SHAPES:
+        q, k, v = (torch.randn((BH, S, HEAD_DIM), generator=gen, device=dev)
+                   for _ in range(3))
+        mask = ref.attention_mask(S, S, causal, window, dev)
+        pairs = int(mask.sum())                     # the visible (query, key) pairs
+        # the yardstick: one SDPA call, the band as a boolean mask where the
+        # window cuts (is_causal where it does not)
+        cut = bool(window) and window < S
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and S > ATTN_SHAPES[0][1]:
+                continue
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            el = qd.element_size()
+            label = (f"BH={BH} S={S} hd={HEAD_DIM} causal={causal} window={window} "
+                     f"{str(dtype).split('.')[1]}")
+
+            def kernel():
+                return flash_attention(qd, kd, vd, causal=causal, window=window)
+
+            def plain():
+                return ref.flash_attention_ref(qd, kd, vd, causal=causal, window=window)
+
+            def library():
+                # (1, BH, S, hd) views: SDPA's fused backends take 4-d inputs
+                if cut:
+                    out = F.scaled_dot_product_attention(qd[None], kd[None], vd[None],
+                                                         attn_mask=mask)
+                else:
+                    out = F.scaled_dot_product_attention(qd[None], kd[None], vd[None],
+                                                         is_causal=causal)
+                return out[0]
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_ATTN_F32
+            ok = _close(got, want, tol)
+            lib_out = library()
+            lib_err = _max_err(lib_out, want)
+            if not _close(lib_out, want, TOL_BF16):
+                raise SystemExit(f"the SDPA yardstick disagrees with the plain version "
+                                 f"at {label}: {lib_err:.3e}")
+            del got, want, lib_out
+            iters = 3 if S > 4096 else 10
+            ms = cuda_ms(kernel, iters=iters)
+            plain_ms = cuda_ms(plain, iters=3)
+            lib_ms = cuda_ms(library, iters=iters)
+            # q, k, v read once and out written once; QKᵀ and P·V over the
+            # visible pairs, at the bf16 tensor rate (fp32: the CUDA-core rate)
+            bms, by = _bound(el * 4 * BH * S * HEAD_DIM, 4 * HEAD_DIM * pairs * BH,
+                             BF16_FLOPS if el == 2 else FP32_FLOPS)
+            row = {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            shapes.append(row)
+            print(f"flash_attention {label}: {'ok' if ok else 'MISMATCH'} err {err:.3e} "
+                  f"(tol {tol}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{lib_ms:.4f} ms (err {lib_err:.3e}), bound {bms:.4f} ms ({by}, "
+                  f"{pairs} pairs x {BH}), {100 * bms / ms:.1f}% of bound", flush=True)
+            if not ok:
+                raise SystemExit(f"flash_attention disagrees with its plain version at "
+                                 f"{label}")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    head = shapes[0]
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:76", "launches": 0,
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "shapes": shapes}}
+
+
+# device kernels of a training step by group, from their names in the
+# profiler (the ragged kernels are one template: <type, weights, transposed>)
+STEP_GROUPS = {"fused_moe": ("fused_",),
+               "ragged_swiglu": ("ragged_kernel<__nv_bfloat16, 2",),
+               "ragged_matmul": ("ragged_kernel<__nv_bfloat16, 1",),
+               "dispatch": ("scatter_rows", "gather_combine"),
+               "grouped (serving)": ("grouped_",),
+               "fp32 GEMMs (_segment_outer)": ("gemm_f32f32",),
+               "index_add_ (_segment_outer)": ("indexFunc",)}
+
+
+def profile_step(trainer, state) -> None:
+    """One more, warm step under the profiler: the step-time breakdown."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(1, state)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(r[2] for r in rows)
+    by_group = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
+                for g, keys in STEP_GROUPS.items()}
+    print(f"profiled warm step: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{device_us / 1e3:.1f} ms (idle {100 - 100 * device_us / wall_us:.1f}%); "
+          + ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in by_group.items())
+          + f", everything else {(device_us - sum(by_group.values())) / 1e3:.1f} ms",
+          flush=True)
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
+        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def report_training(trainer, wall: float, launches: dict, steps: int) -> dict:
+    """Print a training run's steps, peak memory and MACT's model of it;
+    fail on a non-finite loss or grad norm, or a kernel of the path that
+    never launched.  Returns MACT's memory report at the last schedule."""
+    import math
+
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    for r in trainer.log:
+        print(f"step {r['step']}: loss {r['loss']:.6f} (ce {r['ce']:.6f}, aux "
+              f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.4f}, schedule "
+              f"(chunks {r['chunks']}, depth {r['pipeline']}), {r['time_s']:.3f} s, "
+              f"{r['tgs']:.1f} tokens/s, max_load {r['max_load']:.0f}, "
+              f"drops {r['drops']:.0f}", flush=True)
+    s_pp = trainer.mact.history[-1]["s_pp"]
+    last = trainer.log[-1]
+    report = trainer.mact.memory_report(s_pp, last["chunks"], last["pipeline"])
+    print(f"phase {wall:.1f} s (weights built on the card included); "
+          f"max_memory_allocated {peak / 1e9:.2f} GB against ~{PLAIN_TRAIN_GB:.0f} GB "
+          f"reckoned; MACT's model (fused={trainer.mact.fused}): static "
+          f"{report['static_gb'] * 2**30 / 1e9:.2f} GB + activations "
+          f"{report['activation_gb'] * 2**30 / 1e9:.2f} GB = "
+          f"{report['total_gb'] * 2**30 / 1e9:.2f} GB, s'max {report['s_prime_max']:.0f}",
+          flush=True)
+    print(f"launches {launches} over {len(trainer.log)} steps", flush=True)
+    bad = [r for r in trainer.log
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad or len(trainer.log) != steps:
+        raise SystemExit(f"training gave non-finite losses or grad norms: {bad}")
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"{name} never launched on the training path")
+    return report
+
+
+def fwd_bwd_peaks(trainer, state, schedules) -> None:
+    """The peak of one forward + backward (no optimizer) above what is
+    already allocated, at each (chunks, depth), beside MACT's modeled
+    activation bytes for the trainer's leg (Eq. 2; fused=False keeps the
+    dispatch buffer's 2h term)."""
+    import torch
+    from repro_torch.optim.adamw import param_list
+    from repro_torch.training.step import loss_fn
+
+    s_pp = trainer.mact.history[-1]["s_pp"]
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in trainer.data.batch_at(0).items()}
+    leaves = param_list(state.params)
+    for chunks, depth in schedules:
+        modeled = trainer.mact.memory_report(s_pp, chunks, depth)["activation_gb"] * 2**30
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loss_fn(state.params, trainer.cfg, trainer._context(chunks, depth),
+                          batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads if g is not None)
+        del loss, grads
+        print(f"forward + backward at (chunks {chunks}, depth {depth}), fused="
+              f"{trainer.mact.fused}: peak {peak / 1e9:.3f} GB above the "
+              f"{base / 1e9:.2f} GB allocated, of which the bf16 gradients "
+              f"{grad_bytes / 1e9:.3f} GB; the rest {(peak - grad_bytes) / 1e9:.3f} GB "
+              f"against MACT's modeled activations {modeled / 1e9:.3f} GB "
+              f"(s'' {s_pp:.0f})", flush=True)
+
+
 def train_phase() -> dict:
     """Drive the port's training entry point; returns the four kernels'
     launch counts from this run."""
     phase("train")
-    import math
-
     import torch
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels.fused_moe import fused_moe
@@ -417,55 +634,57 @@ def train_phase() -> dict:
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    for r in trainer.log:
-        print(f"step {r['step']}: loss {r['loss']:.6f} (ce {r['ce']:.6f}, aux "
-              f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.4f}, schedule "
-              f"(chunks {r['chunks']}, depth {r['pipeline']}), {r['time_s']:.3f} s, "
-              f"{r['tgs']:.1f} tokens/s, max_load {r['max_load']:.0f}, "
-              f"drops {r['drops']:.0f}", flush=True)
-    s_pp = trainer.mact.history[-1]["s_pp"]
-    last = trainer.log[-1]
-    report = trainer.mact.memory_report(s_pp, last["chunks"], last["pipeline"])
-    print(f"train phase {wall:.1f} s (weights built on the card included); "
-          f"max_memory_allocated {peak / 1e9:.2f} GB against ~{PLAIN_TRAIN_GB:.0f} GB "
-          f"reckoned; MACT's model: static {report['static_gb'] * 2**30 / 1e9:.2f} GB "
-          f"+ activations {report['activation_gb'] * 2**30 / 1e9:.2f} GB = "
-          f"{report['total_gb'] * 2**30 / 1e9:.2f} GB, s'max {report['s_prime_max']:.0f}",
-          flush=True)
-    print(f"launches {launches} over {len(trainer.log)} steps", flush=True)
-    bad = [r for r in trainer.log
-           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
-    if bad or len(trainer.log) != 4:
-        raise SystemExit(f"training gave non-finite losses or grad norms: {bad}")
-    for name, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"{name} never launched on the training path")
+    report_training(trainer, wall, launches, 4)
+    profile_step(trainer, state)
+    fwd_bwd_peaks(trainer, state, ((trainer.log[-1]["chunks"],
+                                    trainer.log[-1]["pipeline"]), (1, 1)))
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
 
-    # one more, warm step under the profiler: the step-time breakdown
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+def train_ragged_phase() -> dict:
+    """Train on the three-launch ragged leg through Trainer, built as
+    launch/train.py::main builds it (its CLI has no flag for this leg, as
+    the JAX launcher has none); returns the path's launch counts."""
+    phase("train (ragged leg)")
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import DistContext
+    from repro_torch.kernels import dispatch_cuda as dc
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
+    from repro_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_swiglu, ragged_matmul)
+    for fn in (*counters, fused_moe):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2)
+    ctx = DistContext(device=torch.device("cuda"), moe_strategy="ep_shardmap",
+                      moe_ragged=True)
+    trainer = Trainer(cfg, ctx, seq_len=2048, global_batch=2, lr=1e-4, seed=0,
+                      dtype=torch.bfloat16, use_mact=True, max_pipeline_depth=2)
+    state = trainer.fit(RAGGED_STEPS)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.fit(1, state)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_us = sum(r[2] for r in rows)
-    groups = {"fused_moe": ("fused_",), "ragged_matmul": ("ragged_matmul",),
-              "dispatch": ("scatter_rows", "gather_combine"),
-              "grouped (serving)": ("grouped_",)}
-    by_group = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
-                for g, keys in groups.items()}
-    print(f"profiled warm step: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{device_us / 1e3:.1f} ms (idle {100 - 100 * device_us / wall_us:.1f}%); "
-          + ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in by_group.items())
-          + f", everything else {(device_us - sum(by_group.values())) / 1e3:.1f} ms",
-          flush=True)
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
-        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    wall = time.perf_counter() - t0
+    report = report_training(trainer, wall, launches, RAGGED_STEPS)
+    if fused_moe.launches:
+        raise SystemExit(f"fused_moe launched {fused_moe.launches} times on the "
+                         f"ragged leg")
+    profile_step(trainer, state)
+
+    mact_sched = (trainer.log[-1]["chunks"], trainer.log[-1]["pipeline"])
+    # MACT's schedule, then one chunk live at a time, then no chunking
+    fwd_bwd_peaks(trainer, state, (mact_sched, (mact_sched[0], 1), (1, 1)))
+    print(f"MACT on the ragged leg: s'max {report['s_prime_max']:.0f}, schedule "
+          f"(chunks {mact_sched[0]}, depth {mact_sched[1]})", flush=True)
     del trainer, state
     torch.cuda.empty_cache()
     return launches
@@ -590,27 +809,32 @@ def check_phase() -> None:
     if not np.isfinite(err) or err > 1e-3 or not same:
         raise SystemExit("the card disagrees with the CPU on the reduced config")
 
-    # two training steps from the same weights: kernels against plain versions
+    # two training steps from the same weights on each training leg: the
+    # card's kernels against the CPU's plain versions
     from repro_torch.training.step import make_train_state
     from repro_torch.training.trainer import Trainer
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        ctx = DistContext(device=torch.device(dev), moe_strategy="ep_shardmap",
-                          moe_fused=True)
-        params = transformer.init_params(cfg, device="cpu", seed=2)
-        trainer = Trainer(cfg, ctx, seq_len=128, global_batch=2, lr=1e-3)
-        trainer.fit(2, make_train_state(_to(params, dev)))
-        runs[dev] = trainer
-    losses = {d: [r["loss"] for r in t.log] for d, t in runs.items()}
-    dloss = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
-    same_sched = (runs["cpu"].chunk_trace == runs["cuda"].chunk_trace
-                  and runs["cpu"].pipeline_trace == runs["cuda"].pipeline_trace)
-    print(f"reduced {cfg.name} fp32, 2 training steps: losses card {losses['cuda']} "
-          f"cpu {losses['cpu']}, max |card - cpu| = {dloss:.3e}; chunk traces "
-          f"{runs['cuda'].chunk_trace} / {runs['cpu'].chunk_trace}, pipeline traces "
-          f"{runs['cuda'].pipeline_trace} / {runs['cpu'].pipeline_trace}", flush=True)
-    if not same_sched or not dloss <= 1e-4:
-        raise SystemExit("the card disagrees with the CPU on the reduced training run")
+    for leg in ("fused", "ragged"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            ctx = DistContext(device=torch.device(dev), moe_strategy="ep_shardmap",
+                              moe_fused=leg == "fused", moe_ragged=leg == "ragged")
+            params = transformer.init_params(cfg, device="cpu", seed=2)
+            trainer = Trainer(cfg, ctx, seq_len=128, global_batch=2, lr=1e-3)
+            trainer.fit(2, make_train_state(_to(params, dev)))
+            runs[dev] = trainer
+        losses = {d: [r["loss"] for r in t.log] for d, t in runs.items()}
+        dloss = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        same_sched = (runs["cpu"].chunk_trace == runs["cuda"].chunk_trace
+                      and runs["cpu"].pipeline_trace == runs["cuda"].pipeline_trace)
+        print(f"reduced {cfg.name} fp32, 2 training steps on the {leg} leg: losses "
+              f"card {losses['cuda']} cpu {losses['cpu']}, max |card - cpu| = "
+              f"{dloss:.3e}; chunk traces {runs['cuda'].chunk_trace} / "
+              f"{runs['cpu'].chunk_trace}, pipeline traces "
+              f"{runs['cuda'].pipeline_trace} / {runs['cpu'].pipeline_trace}", flush=True)
+        tol = 1e-4 if leg == "fused" else 1e-5
+        if not same_sched or not dloss <= tol:
+            raise SystemExit(f"the card disagrees with the CPU on the reduced training "
+                             f"run of the {leg} leg (tolerance {tol})")
 
 
 def _to(tree, device):
@@ -635,12 +859,17 @@ def main() -> int:
     build_phase()
     entries = kernels_phase()
     entries.update(train_kernels_phase())
-    launches = serve_phase()
+    entries.update(attention_kernels_phase())
+    # each path's launches, its counts set to 0 just before it and read just after
+    paths = {"serve": serve_phase()}
     profile_phase()
-    launches.update(train_phase())
+    paths["train (fused leg)"] = train_phase()
+    paths["train (ragged leg)"] = train_ragged_phase()
     check_phase()
-    for name, n in launches.items():
-        entries[name]["launches"] = n
+    for path, launches in paths.items():
+        for name, n in launches.items():
+            entries[name]["launches"] += n
+            entries[name].setdefault("launches_by_path", {})[path] = n
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,17 @@ is not ported yet, and neither is expert placement.
 The local expert leg is one of:
 
 * ``fused`` -- ``kernels/ops.py::moe_ffn`` over the ragged layout, one
-  ``fused_moe`` call forward (the training path);
-* the (E_local, cap_recv) capacity layout on the grouped kernels (serving
-  kernels: no backward on the card);
-* the non-fused ragged leg needs the ``ragged_swiglu`` kernel, which is not
-  ported yet: it raises.
+  ``fused_moe`` call forward: token rows are gathered inside the kernel, so
+  the (R, d) dispatch buffer never exists on the forward;
+* ``ragged`` -- the three-launch leg over the same layout:
+  ``dispatch_rows`` builds the (R, d) buffer, ``ragged_expert_ffn`` runs
+  ``ragged_swiglu`` and ``ragged_matmul`` on it, ``combine_rows`` returns
+  the rows.  This is the buffer the memory model's ``2h`` term charges
+  (Eq. 2 with ``fused=False``);
+* otherwise the (E_local, cap_recv) capacity layout on the grouped kernels
+  (serving kernels: no backward on the card).
+
+Both ragged-layout legs train.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import dispatch as dsp
 from repro_torch.core.chunking import ChunkStages, chunked_pipeline
 from repro_torch.core.router import route
-from repro_torch.kernels.ops import combine_rows, dispatch_rows, expert_ffn
+from repro_torch.kernels.ops import (combine_rows, dispatch_rows, expert_ffn,
+                                     ragged_expert_ffn)
 from repro_torch.kernels.ops import moe_ffn as fused_moe_leg
 
 #: default ragged-layout row-block size; per-run override via
@@ -68,10 +75,6 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     by the chunk count), load and drops summed."""
     if placement is not None:
         raise NotImplementedError("expert placement is not ported yet")
-    if ragged and not fused:
-        raise NotImplementedError(
-            "the non-fused ragged expert leg needs the ragged_swiglu kernel, "
-            "which is not ported yet; use the fused leg (moe_fused=True)")
     peers = _peers(ep_group)
     E = moe_cfg.num_experts
     e_local = E // peers
@@ -108,14 +111,23 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
         # each source block is expert-sorted and packed from 0, so the counts
         # matrix alone gives every row's expert
         local_e = dsp.eids_from_counts(recv_cnt, cap_send)
-        if fused:
+        if ragged or fused:
+            # the flat layout: the worst-case rows plus one block of padding
+            # per local expert, blocks past the routed load predicated off
             R = peers * cap_send + e_local * ragged_block
             R = -(-R // ragged_block) * ragged_block
             plan = dsp.recv_ragged_plan(recv_cnt, local_e, R, ragged_block)
             # the router weight is applied after the return exchange
             # (stage_combine), so this combine is unweighted
-            back = fused_moe_leg(rows, w1, w3, w2, plan.slots, plan.block_to_expert,
-                                 plan.total_rows, None, block_m=ragged_block)
+            if fused:
+                back = fused_moe_leg(rows, w1, w3, w2, plan.slots,
+                                     plan.block_to_expert, plan.total_rows, None,
+                                     block_m=ragged_block)
+            else:
+                buf = dispatch_rows(rows, plan.slots, R, total_rows=plan.total_rows)
+                h = ragged_expert_ffn(buf, w1, w3, w2, plan.block_to_expert,
+                                      plan.total_rows, block_m=ragged_block)
+                back = combine_rows(h, plan.slots, None, plan.total_rows)
         else:
             if moe_cfg.capacity_mode == "dropless":
                 cap_recv = peers * t_c

@@ -9,8 +9,9 @@ Strategies, as in the JAX package:
 * ``ep_shardmap`` -- the EP path (core/ep.py): per FCDA chunk, one plan,
   the dispatch exchange, the local expert leg, the return exchange and the
   combine, each chunk recomputed in the backward (Eq. 7).  With
-  ``moe_fused`` the expert leg is the fused kernel; this is the path that
-  trains.  It runs at one EP peer (``ep_group=None``).
+  ``moe_fused`` the expert leg is the fused kernel, with ``moe_ragged`` the
+  three-launch ragged leg over a real dispatch buffer; these are the paths
+  that train.  It runs at one EP peer (``ep_group=None``).
 * ``dense`` -- every expert on every token, masked combine: the tests'
   numerical oracle.
 """

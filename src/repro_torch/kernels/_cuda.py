@@ -63,16 +63,24 @@ def total_rows_on(total_rows, device: torch.device) -> torch.Tensor:
     return torch.full((1,), int(total_rows), dtype=torch.int32, device=device)
 
 
+def _ctype(a):
+    if isinstance(a, int):
+        return ctypes.c_int
+    if isinstance(a, float):
+        return ctypes.c_float
+    return ctypes.c_void_p
+
+
 def launch(library: str, symbol: str, args: list, device: torch.device) -> None:
-    """Call ``symbol`` of ``csrc/<library>.cu`` with ``args`` (tensors, ints
-    or None for a null pointer) on the device's current stream; raise on
-    the CUDA error it returns."""
+    """Call ``symbol`` of ``csrc/<library>.cu`` with ``args`` (tensors, ints,
+    floats passed as C floats, or None for a null pointer) on the device's
+    current stream; raise on the CUDA error it returns."""
     fn = getattr(build.library(library), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
-                        for a in args] + [ctypes.c_void_p])
+        fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    values = [a if a is None or isinstance(a, int) else a.data_ptr() for a in args]
+    values = [a if a is None or isinstance(a, (int, float)) else a.data_ptr()
+              for a in args]
     with torch.cuda.device(device):
         rc = fn(*values, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

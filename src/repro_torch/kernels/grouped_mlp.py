@@ -47,7 +47,8 @@ def _launch(wrapper, x: torch.Tensor, ws: tuple, dims) -> torch.Tensor:
     _cuda.no_autograd(op, (x, *ws),
                       "the capacity-layout expert FFN is for serving; train "
                       "through the EP strategy's fused expert leg "
-                      "(DistContext(moe_strategy='ep_shardmap', moe_fused=True))")
+                      "(DistContext(moe_strategy='ep_shardmap', moe_fused=True)) "
+                      "or its ragged one (moe_ragged=True)")
     if K % _VEC or N % _VEC or M > _MAX_M:
         raise ValueError(f"{op}: K={K} and N={N} must be multiples of {_VEC} "
                          f"and M={M} at most {_MAX_M}")

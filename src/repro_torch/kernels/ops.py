@@ -9,11 +9,16 @@
   backward *is* the dispatch kernel with the router weight riding along,
   plus a (T, K) segment dot for the weight's gradient.  Only the int32 maps
   (and combine's own inputs) are saved for the backward.
+* ``ragged_expert_ffn``: the SwiGLU FFN of the three-launch ragged leg
+  over the dispatch buffer, ``ragged_swiglu`` then ``ragged_matmul``
+  forward.  It saves only its inputs and the int32 maps (no (R, f)
+  tensor); its backward recomputes both up-projections with
+  ``ragged_matmul``.
 * ``moe_ffn``: the fused expert leg, one ``fused_moe`` call forward.  It
   saves only its inputs and the int32 maps; its backward recomputes the
-  dispatch buffer with ``scatter_rows`` and the FFN interior with
-  ``ragged_matmul``, returns the token gradient through ``gather_combine``
-  and the weight gradients with ``_segment_outer``.
+  dispatch buffer with ``scatter_rows``, runs the same FFN interior as
+  ``ragged_expert_ffn``'s backward (``_ffn_backward``) and returns the token
+  gradient through ``gather_combine``.
 
 On CPU tensors every kernel call takes its plain version, so the same
 autograd Functions run, and are tested, on the CPU.
@@ -21,7 +26,7 @@ autograd Functions run, and are tested, on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,7 +34,7 @@ from repro_torch.core.dispatch import invert_slots
 from repro_torch.kernels.dispatch_cuda import gather_combine, scatter_rows
 from repro_torch.kernels.fused_moe import fused_moe
 from repro_torch.kernels.grouped_mlp import grouped_matmul, grouped_swiglu
-from repro_torch.kernels.ragged_mlp import ragged_matmul
+from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
 
 
 def expert_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -139,7 +144,7 @@ def combine_rows(buf: torch.Tensor, slots: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the fused expert leg
+# the ragged expert FFN and the fused expert leg
 # ---------------------------------------------------------------------------
 
 def _segment_outer(a: torch.Tensor, b: torch.Tensor, b2e: torch.Tensor,
@@ -161,6 +166,73 @@ def _segment_outer(a: torch.Tensor, b: torch.Tensor, b2e: torch.Tensor,
     return acc
 
 
+class _FFNGrads(NamedTuple):
+    dbuf: torch.Tensor      # (R, d) gradient of the FFN's input rows
+    dw1: torch.Tensor
+    dw3: torch.Tensor
+    dw2: torch.Tensor
+    a: torch.Tensor         # (R, f) the recomputed SwiGLU output, x's type
+
+
+def _ffn_backward(buf: torch.Tensor, g_buf: torch.Tensor, w1: torch.Tensor,
+                  w3: torch.Tensor, w2: torch.Tensor, b2e: torch.Tensor, rows,
+                  block_m: int) -> _FFNGrads:
+    """The backward of y = silu(buf @ w1[e]) * (buf @ w3[e]) @ w2[e] over the
+    ragged layout, given dL/dy = ``g_buf``: both up-projections recomputed
+    with ``ragged_matmul`` (no (R, f) tensor was saved), the elementwise
+    gradient in fp32 cast to the rows' type, the row gradient through the
+    transposed weights read in place, the weight gradients with
+    ``_segment_outer``.  The JAX package's ragged and fused VJPs share this
+    arithmetic, rounding point for rounding point."""
+    E = w1.shape[0]
+    dt = buf.dtype
+
+    def mm(a, w, transpose=False):
+        return ragged_matmul(a, w, b2e, rows, block_m, transpose_w=transpose)
+
+    h1 = mm(buf, w1).float()
+    h3 = mm(buf, w3).float()
+    s = torch.sigmoid(h1)
+    silu_h1 = h1 * s
+    a = (silu_h1 * h3).to(dt)
+    da = mm(g_buf, w2, True).float()
+    dh3 = (da * silu_h1).to(dt)
+    dh1 = (da * h3 * (s + silu_h1 * (1 - s))).to(dt)
+    del h1, h3, s, silu_h1, da
+    dbuf = (mm(dh1, w1, True) + mm(dh3, w3, True)).to(dt)
+    dw1 = _segment_outer(buf, dh1, b2e, E).to(w1.dtype)
+    dw3 = _segment_outer(buf, dh3, b2e, E).to(w3.dtype)
+    dw2 = _segment_outer(a, g_buf, b2e, E).to(w2.dtype)
+    return _FFNGrads(dbuf, dw1, dw3, dw2, a)
+
+
+class _RaggedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, b2e, rows, block_m):
+        ctx.save_for_backward(x, w1, w3, w2, b2e, rows)
+        ctx.block_m = block_m
+        h = ragged_swiglu(x, w1, w3, b2e, rows, block_m)
+        return ragged_matmul(h, w2, b2e, rows, block_m)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w1, w3, w2, b2e, rows = ctx.saved_tensors
+        g = _ffn_backward(x, gy.contiguous(), w1, w3, w2, b2e, rows, ctx.block_m)
+        return g.dbuf, g.dw1, g.dw3, g.dw2, None, None, None
+
+
+def ragged_expert_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                      w2: torch.Tensor, block_to_expert: torch.Tensor, total_rows,
+                      *, block_m: int = 128) -> torch.Tensor:
+    """The SwiGLU FFN over the ragged layout: x (R, d) expert-grouped,
+    bm-aligned rows -> (R, d), rows at or past ``total_rows`` 0.  Forward is
+    one ``ragged_swiglu`` and one ``ragged_matmul`` launch; the backward
+    recomputes the up-projections (``_ffn_backward``)."""
+    rows = torch.as_tensor(total_rows, device=x.device).to(torch.int32)
+    return _RaggedFFN.apply(x, w1, w3, w2, block_to_expert.to(torch.int32), rows,
+                            block_m)
+
+
 class _FusedMoE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w3, w2, src, wslot, slots, b2e, rows, has_weights,
@@ -173,40 +245,23 @@ class _FusedMoE(torch.autograd.Function):
     def backward(ctx, gy):
         x, w1, w3, w2, src, wslot, slots, b2e, rows = ctx.saved_tensors
         gy = gy.contiguous()
-        E = w1.shape[0]
-
-        def mm(a, w, transpose=False):
-            return ragged_matmul(a, w, b2e, rows, ctx.block_m, transpose_w=transpose)
-
         # combine-bwd = dispatch kernel: dL/dy[r] = wslot[r] * gy[token(r)]
         g_buf = scatter_rows(gy, src, rows, wslot)
         # dispatch recompute: the buffer exists only inside this backward
         buf = scatter_rows(x, src, rows)
-        h1 = mm(buf, w1).float()
-        h3 = mm(buf, w3).float()
-        s = torch.sigmoid(h1)
-        silu_h1 = h1 * s
-        a = (silu_h1 * h3).to(x.dtype)
-        da = mm(g_buf, w2, True).float()
-        dh3 = (da * silu_h1).to(x.dtype)
-        dh1 = (da * h3 * (s + silu_h1 * (1 - s))).to(x.dtype)
-        del h1, s, da
-        dbuf = (mm(dh1, w1, True) + mm(dh3, w3, True)).to(x.dtype)
+        g = _ffn_backward(buf, g_buf, w1, w3, w2, b2e, rows, ctx.block_m)
         # dispatch-bwd = combine kernel: dx[t] = sum_k dbuf[slot[t, k]]
-        dx = gather_combine(dbuf, slots)
-        del dbuf
-        dw1 = _segment_outer(buf, dh1, b2e, E).to(w1.dtype)
-        dw3 = _segment_outer(buf, dh3, b2e, E).to(w3.dtype)
-        dw2 = _segment_outer(a, g_buf, b2e, E).to(w2.dtype)
+        dx = gather_combine(g.dbuf, slots)
         d_wslot = None
         if ctx.has_weights:
             # d wslot[r] = <gy[token(r)], y[r]>: the (T, K) segment dot of
             # the combine's backward, then permuted to rows
-            y_buf = mm(a, w2)
+            y_buf = ragged_matmul(g.a, w2, b2e, rows, ctx.block_m)
             dwtk = _weight_grad(gy, y_buf, slots, wslot.dtype)
             pos = invert_slots(slots, wslot.shape[0])
             d_wslot = _slot_weights(dwtk, pos)
-        return (dx, dw1, dw3, dw2, None, d_wslot, None, None, None, None, None)
+        return (dx, g.dw1, g.dw3, g.dw2, None, d_wslot, None, None, None, None,
+                None)
 
 
 def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,

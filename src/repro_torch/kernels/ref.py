@@ -15,6 +15,8 @@ Layouts:
   padded to the row-block size bm, ``block_to_expert`` (R // bm,) naming
   each block's expert and ``total_rows`` the occupied prefix; rows at or
   past it are 0.  ``total_rows`` may be a Python int or a 0-d tensor.
+* attention: q (BH, S, hd), k and v (BH, Skv, hd), heads folded into the
+  leading dim and KV already repeated to the query heads.
 """
 
 from __future__ import annotations
@@ -186,3 +188,51 @@ def fused_moe_rows_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
         # one row per token per k: each add is exact and in row order
         acc.index_add_(0, torch.where(rank == k, tok_s, T), y_s)
     return acc[:T].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+#: the score of a masked (query, key) pair: finite, as in the JAX kernel, so
+#: exp(s - m) never meets inf - inf
+NEG_INF = -1e30
+
+
+def attention_mask(S: int, Skv: int, causal: bool, window: int,
+                   device=None) -> torch.Tensor:
+    """(S, Skv) bool, True where query position q sees key position k:
+    k <= q when causal, and k > q - window when a window is given (with or
+    without causal)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """softmax(q kᵀ * hd**-0.5) v over the visible pairs: scores, softmax
+    and P·V in fp32, masked scores ``NEG_INF``, the result divided by
+    max(l, 1e-30) and cast to q's type.  Head slices are taken a few at a
+    time, so the fp32 scores stay within ~512 MB."""
+    BH, S, hd = q.shape
+    Skv = k.shape[1]
+    scale = hd ** -0.5
+    mask = attention_mask(S, Skv, causal, window, q.device)
+    out = torch.empty_like(q)
+    step = max(1, (1 << 27) // max(1, S * Skv))
+    for b0 in range(0, BH, step):
+        sl = slice(b0, b0 + step)
+        s = torch.matmul(q[sl].float(), k[sl].float().transpose(1, 2)) * scale
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        del s
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p, v[sl].float())
+        out[sl] = (o / l.clamp_min(1e-30)).to(q.dtype)
+    return out

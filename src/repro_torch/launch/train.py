@@ -8,10 +8,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --smoke --device cpu --ep --fused --steps 3
 
-Training runs on the EP strategy (``--ep``).  The local path's expert FFN
-is the grouped kernels, which have no backward: on the card, training
-without ``--ep`` raises, as training it through Pallas raises in the JAX
-package.
+Training on the card runs the EP strategy with the fused expert leg
+(``--ep --fused``).  The EP strategy's ragged leg trains too, through
+``Trainer`` with ``DistContext(moe_strategy="ep_shardmap", moe_ragged=True)``;
+the JAX launcher has no flag for it, and neither has this one.  The local
+path and the EP capacity layout run the grouped kernels, which have no
+backward: on the card, training on them raises, as training them through
+Pallas raises in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,10 +84,12 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat_policy=args.remat)
-    if device.type == "cuda" and not args.ep:
+    if device.type == "cuda" and not args.fused:
         raise RuntimeError(
-            "training on the local path runs the grouped expert kernels, which "
-            "have no backward; pass --ep (with --fused) to train on the card")
+            "training without --fused runs the grouped expert kernels, which "
+            "have no backward; pass --ep --fused to train on the card (the "
+            "ragged leg, DistContext(moe_strategy='ep_shardmap', "
+            "moe_ragged=True), trains through Trainer)")
     depth = 1 if args.no_pipeline else args.pipeline_depth
     ctx = DistContext(device=device, moe_chunks=args.chunks,
                       pipeline_chunks=depth if args.no_mact else 1,

@@ -13,7 +13,9 @@ Tolerances: fp32 1e-5 (the same products summed in another order, weights
 at the model's init scale); bf16 1e-2 (both sides sum in fp32 and round once
 to bf16, so they differ by at most one bf16 ulp, 2**-7 relative).  The
 dispatch kernels move and scale rows with the plain version's rounding
-points, so they are held to equality.
+points, so they are held to equality.  Flash attention: fp32 2e-5, the
+tolerance the JAX package holds its own kernel to; bf16 1e-2 (the kernel
+rounds P to bf16 for P·V, 2**-9 relative per weight, and the output once).
 """
 
 import pytest
@@ -23,8 +25,9 @@ from repro_torch.core import dispatch as dsp
 from repro_torch.kernels import dispatch_cuda as dc
 from repro_torch.kernels import grouped_mlp as gm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_moe import fused_moe
-from repro_torch.kernels.ragged_mlp import ragged_matmul
+from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (E, M, K, N): M edges below, at and past the 64-row tile; N and K edges
@@ -202,6 +205,80 @@ def test_moe_ffn_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,E,d,f,bm,skew", [(24, 2, 4, 16, 32, 8, False),
+                                               (96, 2, 4, 64, 136, 64, True),
+                                               (200, 2, 8, 128, 256, 128, True)])
+def test_ragged_swiglu_kernel_matches_plain(cuda, T, K, E, d, f, bm, skew, dtype):
+    (x, w1, w3, _, _, _), (_, b2e, total, src), R = _ragged_case(
+        T, K, E, d, f, bm, dtype, cuda, seed=T + 1, skew=skew)
+    buf = ref.scatter_rows_ref(x, src, total)
+    before = ragged_swiglu.launches
+    got = ragged_swiglu(buf, w1, w3, b2e, total, bm)
+    torch.cuda.synchronize()
+    assert ragged_swiglu.launches == before + 1
+    assert got.dtype == dtype and got.shape == (R, f)
+    _assert_close(got, ref.ragged_swiglu_ref(buf, w1, w3, b2e, total), dtype)
+    assert (got[int(total):] == 0).all()
+
+
+@pytest.mark.cuda
+def test_ragged_expert_ffn_on_card_matches_cpu(cuda):
+    """The ragged leg's FFN forward and gradients on the card's kernels
+    against the same Function on the CPU's plain versions, fp32."""
+    (x, w1, w3, w2, _, _), (_, b2e, total, src), _ = _ragged_case(
+        48, 2, 4, 64, 128, 8, torch.float32, "cpu", skew=True)
+    buf = ref.scatter_rows_ref(x, src, total)
+    outs = {}
+    for dev in ("cpu", cuda):
+        before = ragged_swiglu.launches
+        leaves = [t.detach().to(dev).requires_grad_() for t in (buf, w1, w3, w2)]
+        y = ops.ragged_expert_ffn(*leaves, b2e.to(dev), total.to(dev), block_m=8)
+        (y ** 2).sum().backward()
+        assert ragged_swiglu.launches == before + (dev != "cpu")
+        outs[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# (BH, S, Skv, hd, causal, window): tile edges (64 rows) met and missed, a
+# window that does not divide the tile, Skv != S both ways, hd 8..128
+FLASH_CASES = [(2, 64, 64, 64, True, 0), (3, 200, 200, 128, True, 16),
+               (2, 130, 190, 24, False, 100), (2, 257, 257, 8, True, 70),
+               (1, 100, 60, 128, True, 0), (2, 64, 96, 40, False, 0),
+               (2, 300, 300, 128, False, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,Skv,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, BH, S, Skv, hd, causal, window,
+                                              dtype):
+    g = torch.Generator(device="cpu").manual_seed(S + hd)
+    q = torch.randn((BH, S, hd), generator=g).to(cuda, dtype)
+    k, v = (torch.randn((BH, Skv, hd), generator=g).to(cuda, dtype) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FLASH_TOL[dtype],
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 136), device=cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
 def test_training_on_the_local_path_raises_on_the_card(cuda):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no backward"):
@@ -264,3 +341,27 @@ def test_new_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="divide or be a multiple"):
         from repro_torch.kernels.ragged_mlp import row_tile
         row_tile(48)
+
+
+def test_ragged_swiglu_and_flash_attention_take_the_plain_version_on_the_cpu():
+    (x, w1, w3, w2, _, _), (_, b2e, total, src), _ = _ragged_case(
+        24, 2, 4, 16, 32, 8, torch.float32, "cpu")
+    buf = ref.scatter_rows_ref(x, src, total)
+    counters = (ragged_swiglu, ragged_matmul, flash_attention)
+    before = [c.launches for c in counters]
+    torch.testing.assert_close(ragged_swiglu(buf, w1, w3, b2e, total, 8),
+                               ref.ragged_swiglu_ref(buf, w1, w3, b2e, total),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.ragged_expert_ffn(buf, w1, w3, w2, b2e, total,
+                                                     block_m=8),
+                               ref.ragged_expert_ffn_ref(buf, w1, w3, w2, b2e, total),
+                               rtol=0, atol=0)
+    q = torch.randn((2, 16, 8))
+    torch.testing.assert_close(flash_attention(q, q, q, window=4),
+                               ref.flash_attention_ref(q, q, q, causal=True, window=4),
+                               rtol=0, atol=0)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="do not match"):
+        ragged_swiglu(buf, w1, w3[:, :8], b2e, total, 8)
+    with pytest.raises(ValueError, match="blocks"):
+        ragged_swiglu(x, w1, w3, b2e, total, 8)

@@ -101,9 +101,9 @@ def test_moe_ffn_matches_jax(B, S, chunks, mode):
 
 
 def test_unported_strategies_raise():
-    """EP, dense and local resolve; an unknown strategy is refused, and the
-    EP options still to be ported (the non-fused ragged leg, EP across
-    ranks) raise."""
+    """EP, dense and local resolve; an unknown strategy is refused; the EP
+    option still to be ported (EP across ranks) raises, while the ragged
+    leg runs and computes what the fused leg does."""
     cfg = get_config("mixtral-8x7b").reduced().moe
     for strategy in ("ep_shardmap", "dense", "tp_gspmd"):
         assert tmoe.resolve_strategy(
@@ -114,10 +114,21 @@ def test_unported_strategies_raise():
     params = {"router": {"w": torch.zeros((256, 4)), "bias": torch.zeros(4)},
               **{k: torch.zeros((4, 256, 512) if k != "w2" else (4, 512, 256))
                  for k in ("w1", "w3", "w2")}}
-    for kw in ({"moe_ragged": True}, {"ep_group": object(), "moe_fused": True}):
-        with pytest.raises(NotImplementedError):
-            tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
-                device=CPU, moe_strategy="ep_shardmap", **kw))
+    with pytest.raises(NotImplementedError):
+        tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
+            device=CPU, moe_strategy="ep_shardmap", ep_group=object(), moe_fused=True))
+    gen = torch.Generator().manual_seed(0)
+    for leaf in (params["router"]["w"], params["w1"], params["w3"], params["w2"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen) * leaf.shape[-2] ** -0.5)
+    x = torch.randn((1, 4, 256), generator=gen)
+    y_r, st_r = tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
+        device=CPU, moe_strategy="ep_shardmap", moe_ragged=True))
+    y_f, st_f = tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
+        device=CPU, moe_strategy="ep_shardmap", moe_fused=True))
+    assert y_r.abs().max() > 0
+    torch.testing.assert_close(y_r, y_f, rtol=1e-5, atol=1e-5)
+    assert st_r["load"].tolist() == st_f["load"].tolist()
+    assert float(st_r["drops"]) == float(st_f["drops"]) == 0.0
 
 
 def test_bridge_unstacks_scanned_periods():
