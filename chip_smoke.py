@@ -8,13 +8,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device  -- the card's name and power limit (nvidia-smi).
 2. build   -- nvcc builds every kernel of the port from
               src/repro_torch/kernels/csrc (sm_90a), one nvcc per source,
-              all started together.
+              all started together; ptxas's registers and spills of the
+              Hopper (TMA + wgmma) kernels are printed.
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (serving: the grouped kernels;
-              training: dispatch, ragged matmul and SwiGLU, fused MoE;
-              attention: flash attention at Mixtral-8x7B's heads), in fp32
-              and bf16, and timed beside the plain version, a one-call
-              PyTorch yardstick where there is one, and the card's bound.
+              training: dispatch, ragged matmul at its three layouts and
+              SwiGLU, fused MoE; attention: flash attention at
+              Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
+              plain version, a one-call PyTorch yardstick where there is
+              one, and the card's bound.  The Hopper kernels are relaunched
+              and must repeat their first output bit for bit.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace; every request must finish with finite logits
@@ -105,17 +108,38 @@ def device_phase() -> str:
     return line
 
 
+# the Hopper (TMA + wgmma) kernels, whose register and spill report the build
+# phase prints by name: their accumulators must stay in registers
+HOPPER_KERNELS = ("ragged_matmul_wgmma", "flash_wgmma_kernel")
+
+
+def ptxas_report(log: str) -> list:
+    """(entry function, its registers line, its spill line) from nvcc's
+    -Xptxas -v output."""
+    out, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn, spill = ln.split("'")[1], ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            out.append((fn, ln.split(":", 1)[1].strip(), spill))
+            fn = None
+    return out
+
+
 def build_phase() -> None:
     phase("build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     for name, info in build.build().items():
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
         print(f"built {name} in {info['seconds']:.1f} s"
               + (" (cached)" if info["cached"] else ""), flush=True)
-        for ln in ptxas:
-            print(f"  ptxas: {ln}")
+        for fn, regs, spill in ptxas_report(info["log"]):
+            hopper = next((k for k in HOPPER_KERNELS if k in fn), None)
+            if hopper:
+                args = fn[fn.index(hopper) + len(hopper):][:12]
+                print(f"  ptxas {hopper}{args}: {regs}; {spill}", flush=True)
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -150,6 +174,20 @@ def _max_err(a, b) -> float:
 def _close(a, b, tol: float) -> bool:
     import torch
     return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+REPEATS = 8     # relaunches of a Hopper kernel held to its first output
+
+
+def repeat_check(name: str, label: str, fn, first) -> None:
+    """A pipeline fault (a stage overwritten before its products are done)
+    shows as rare mismatches: every relaunch must equal the first output
+    bit for bit."""
+    import torch
+    for i in range(REPEATS):
+        if not torch.equal(fn(), first):
+            raise SystemExit(f"{name} at {label}: relaunch {i + 1} differs from the first")
+    print(f"{name} {label}: {REPEATS} relaunches equal the first bit for bit", flush=True)
 
 
 def kernels_phase() -> dict:
@@ -335,6 +373,12 @@ def train_kernels_phase() -> dict:
              grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w.transpose(1, 2),
                                                          offs=offs)),
              el * (live * D_FF + used * D_MODEL * D_FF + R * D_MODEL),
+             2 * live * D_MODEL * D_FF, 1e-4),
+            (f"({R}, {D_FF}) @ w2 ({D_FF}, {D_MODEL})", ragged_matmul,
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+             (h, w2, b2e, total, BLOCK_M),
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
+             el * (live * D_FF + used * D_FF * D_MODEL + R * D_MODEL),
              2 * live * D_MODEL * D_FF, 1e-4)],
         "ragged_swiglu": [(
             f"({R}, {D_MODEL}) @ w1, w3 ({D_MODEL}, {D_FF})", ragged_swiglu,
@@ -407,6 +451,8 @@ def train_kernels_phase() -> dict:
                   flush=True)
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at {label}")
+            if name == "ragged_matmul":
+                repeat_check(name, label, lambda: fn(*argsb), gotb)
             del got32, want32, gotb, wantb, argsb
         head = shapes[0]
         entries[name] = {
@@ -472,6 +518,8 @@ def attention_kernels_phase() -> dict:
             err = _max_err(got, want)
             tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_ATTN_F32
             ok = _close(got, want, tol)
+            if ok and dtype == torch.bfloat16:
+                repeat_check("flash_attention", label, kernel, got)
             lib_out = library()
             lib_err = _max_err(lib_out, want)
             if not _close(lib_out, want, TOL_BF16):
@@ -509,10 +557,11 @@ def attention_kernels_phase() -> dict:
 
 
 # device kernels of a training step by group, from their names in the
-# profiler (the ragged kernels are one template: <type, weights, transposed>)
+# profiler (the tile loop's ragged kernels are one template: <type, weights,
+# transposed>; bf16 ragged_matmul is the Hopper kernel)
 STEP_GROUPS = {"fused_moe": ("fused_",),
                "ragged_swiglu": ("ragged_kernel<__nv_bfloat16, 2",),
-               "ragged_matmul": ("ragged_kernel<__nv_bfloat16, 1",),
+               "ragged_matmul": ("ragged_matmul_wgmma",),
                "dispatch": ("scatter_rows", "gather_combine"),
                "grouped (serving)": ("grouped_",),
                "fp32 GEMMs (_segment_outer)": ("gemm_f32f32",),

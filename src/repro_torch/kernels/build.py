@@ -57,7 +57,8 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, dict]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     per source, all started together.  Returns {name: {"seconds", "log",
-    "cached"}}; the log holds ptxas's register and spill report."""
+    "cached"}}; the log holds ptxas's register and spill report, kept
+    beside the library so a cached build reports it too."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = None
     procs = {}
@@ -66,7 +67,9 @@ def build(names=SOURCES) -> dict[str, dict]:
     for name in names:
         target = library_path(name)
         if target.exists():
-            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+            log = target.with_suffix(".log")
+            out[name] = {"seconds": 0.0, "cached": True,
+                         "log": log.read_text() if log.exists() else ""}
             continue
         compiler = compiler or nvcc()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -79,6 +82,7 @@ def build(names=SOURCES) -> dict[str, dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name} "
                                f"(exit {proc.returncode}):\n{log}")
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)        # atomic: a reader never sees half a file
         out[name] = {"seconds": time.perf_counter() - t0, "log": log,
                      "cached": False}

@@ -3,9 +3,11 @@
 ``flash_attention`` computes softmax(q kᵀ * hd**-0.5) v over the visible
 (query, key) pairs, causal and/or within a sliding window, in the JAX
 package's layout: heads folded into the leading dim, KV already repeated to
-the query heads.  On a CUDA tensor it launches the kernel of
-``csrc/flash_attention.cu``; on a CPU tensor it computes the plain version
-of ``kernels/ref.py``.  It counts its kernel launches in ``.launches``.
+the query heads.  On a CUDA tensor it launches a kernel of
+``csrc/flash_attention.cu``, picked by dtype alone: bf16 runs the Hopper
+kernel (TMA, an mbarrier ring, wgmma, the softmax in registers), fp32 the
+simple FMA kernel.  On a CPU tensor it computes the plain version of
+``kernels/ref.py``.  It counts its kernel launches in ``.launches``.
 
 As in the JAX package, no model calls it: it is a kernel with its plain
 version, held against the JAX kernel by the tests.

@@ -5,9 +5,12 @@ kernels' wrappers.
 one expert per ``block_m``-row block (``block_to_expert``), and writes 0 at
 and past ``total_rows``; ``ragged_swiglu`` computes silu(x @ w1[e]) *
 (x @ w3[e]) over the same layout.  On a CUDA tensor each launches its
-kernel of ``csrc/ragged_mlp.cu``; on a CPU tensor it computes the plain
-version of ``kernels/ref.py``.  Each counts its kernel launches in
-``.launches``.
+kernel of ``csrc/ragged_mlp.cu``, picked by dtype alone: bf16
+``ragged_matmul`` runs the Hopper kernel (TMA, an mbarrier ring, wgmma;
+128- or 64-row tiles), fp32 ``ragged_matmul`` and ``ragged_swiglu`` in both
+dtypes the simple tile loop of ``csrc/ragged_tile.cuh``.  On a CPU tensor
+each computes the plain version of ``kernels/ref.py``.  Each counts its
+kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -16,14 +19,16 @@ import torch
 
 from repro_torch.kernels import _cuda, ref
 
-_TILE_M = 64          # the kernel's row tile
+_TILE_M = 64          # the tile loop's row tile, and the Hopper kernel's small one
 
 
-def row_tile(block_m: int) -> int:
-    """The kernel's rows per block: 64, or the whole row block when it is
-    smaller, so a block's rows never straddle two experts."""
+def row_tile(block_m: int, wide: bool = False) -> int:
+    """The rows a kernel's tile keeps: 64, or the whole row block when it is
+    smaller, so a tile's rows never straddle two experts.  ``wide`` (the
+    bf16 ``ragged_matmul`` kernel): 128 when ``block_m`` is a multiple of
+    128, a 128-row tile holding one row block."""
     if block_m % _TILE_M == 0:
-        return _TILE_M
+        return 2 * _TILE_M if wide and block_m % (2 * _TILE_M) == 0 else _TILE_M
     if _TILE_M % block_m == 0:
         return block_m
     raise ValueError(f"block_m={block_m} must divide or be a multiple of {_TILE_M}")
@@ -45,7 +50,7 @@ def _launch(op: str, x: torch.Tensor, weights: tuple, block_to_expert, total_row
     R, K = x.shape
     if K % 8 or N % 8:
         raise ValueError(f"{op}: K={K} and N={N} must be multiples of 8")
-    tm = row_tile(block_m)
+    tm = row_tile(block_m, wide=op == "ragged_matmul" and x.dtype == torch.bfloat16)
     b2e = _cuda.index32(block_to_expert, x.device)
     _cuda.no_autograd(op, (x, *weights),
                       "train through kernels/ops.py (moe_ffn or ragged_expert_ffn)")
@@ -72,7 +77,8 @@ def ragged_matmul(x: torch.Tensor, w: torch.Tensor, block_to_expert: torch.Tenso
         return ref.ragged_matmul_ref(x, w.transpose(1, 2) if transpose_w else w,
                                      block_to_expert, total_rows)
     out = _launch("ragged_matmul", x, (w,), block_to_expert, total_rows, block_m,
-                  w.shape[1] if transpose_w else w.shape[2], (int(transpose_w),))
+                  w.shape[1] if transpose_w else w.shape[2],
+                  (int(transpose_w), w.shape[0]))
     ragged_matmul.launches += 1
     return out
 

@@ -187,6 +187,80 @@ def test_ragged_and_fused_kernels_match_plain(cuda, T, K, E, d, f, bm, skew, dty
     assert (ragged_matmul.launches, fused_moe.launches) == (before[0] + 2, before[1] + 2)
 
 
+def _blocked_case(nb, live_blocks, E, K, N, bm, trans, seed, exact=False):
+    """x (nb * bm, K) in row blocks of ascending experts, the first
+    ``live_blocks`` live; w (E, K, N), or (E, N, K) when ``trans``.  exact:
+    small integers and power-of-two weights, so every fp32 sum is exact."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b2e = torch.sort(torch.randint(0, E, (nb,), generator=g)).values.to(torch.int32)
+    wshape = (E, N, K) if trans else (E, K, N)
+    if exact:
+        x = torch.randint(-4, 5, (nb * bm, K), generator=g).float()
+        w = (2.0 ** -torch.randint(0, 4, wshape, generator=g).float()
+             * torch.randint(-1, 2, wshape, generator=g).float())
+    else:
+        x = torch.randn((nb * bm, K), generator=g)
+        w = torch.randn(wshape, generator=g) * K ** -0.5
+    return x, w, b2e, torch.tensor(live_blocks * bm, dtype=torch.int32)
+
+
+# (row blocks, live blocks, E, K, N, bm): several 256-column tiles with N off
+# the tile, K off the 64-deep k-block, dead row blocks, 64- and 8-row tiles
+RAGGED_BF16_CASES = [(6, 4, 4, 136, 600, 128), (5, 5, 3, 64, 200, 128),
+                     (3, 1, 2, 4096, 256, 128), (7, 5, 4, 136, 200, 64),
+                     (12, 9, 4, 72, 136, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("nb,live,E,K,N,bm", RAGGED_BF16_CASES)
+def test_ragged_matmul_bf16_kernel_matches_plain(cuda, nb, live, E, K, N, bm, trans):
+    """The bf16 Hopper kernel against the plain version, N-major and K-major
+    weights; rows past total_rows exactly 0."""
+    x, w, b2e, total = (t.to(cuda) for t in _blocked_case(nb, live, E, K, N, bm, trans,
+                                                          seed=nb * K + N))
+    x, w = x.bfloat16(), w.bfloat16()
+    before = ragged_matmul.launches
+    got = ragged_matmul(x, w, b2e, total, bm, transpose_w=trans)
+    torch.cuda.synchronize()
+    assert ragged_matmul.launches == before + 1
+    want = ref.ragged_matmul_ref(x, w.transpose(1, 2) if trans else w, b2e, total)
+    _assert_close(got, want, torch.bfloat16)
+    assert (got[int(total):] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("bm", [128, 64, 8])
+def test_ragged_matmul_bf16_is_exact_under_exact_arithmetic(cuda, bm, trans):
+    """Integer rows and power-of-two weights: every product and fp32 sum is
+    exact, so the kernel equals the plain version bit for bit."""
+    nb = max(4, 512 // bm)
+    x, w, b2e, total = (t.to(cuda) for t in _blocked_case(nb, nb - 1, 4, 1000, 328, bm,
+                                                          trans, seed=bm, exact=True))
+    x, w = x.bfloat16(), w.bfloat16()
+    got = ragged_matmul(x, w, b2e, total, bm, transpose_w=trans)
+    want = ref.ragged_matmul_ref(x, w.transpose(1, 2) if trans else w, b2e, total)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+def test_ragged_matmul_bf16_is_deterministic_at_large_k(cuda, trans):
+    """A pipeline fault (a stage overwritten before its products are done)
+    shows as rare mismatches at large K: repeated launches must agree bit
+    for bit, and with the plain version."""
+    x, w, b2e, total = (t.to(cuda) for t in _blocked_case(12, 11, 4, 8192, 512, 128, trans,
+                                                          seed=5))
+    x, w = x.bfloat16(), w.bfloat16()
+    first = ragged_matmul(x, w, b2e, total, 128, transpose_w=trans)
+    for _ in range(4):
+        torch.testing.assert_close(ragged_matmul(x, w, b2e, total, 128, transpose_w=trans),
+                                   first, rtol=0, atol=0)
+    want = ref.ragged_matmul_ref(x, w.transpose(1, 2) if trans else w, b2e, total)
+    _assert_close(first, want, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_moe_ffn_on_card_matches_cpu(cuda):
     """The fused leg's forward and gradients on the card's kernels against
@@ -242,12 +316,15 @@ def test_ragged_expert_ffn_on_card_matches_cpu(cuda):
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
-# (BH, S, Skv, hd, causal, window): tile edges (64 rows) met and missed, a
-# window that does not divide the tile, Skv != S both ways, hd 8..128
+# (BH, S, Skv, hd, causal, window): tile edges (64 and 128 rows) met and
+# missed, a window that does not divide the tile, Skv != S both ways, hd
+# 8..128; then long sequences, where the bf16 kernel's band has interior
+# tiles that skip the mask, causal with and without a window
 FLASH_CASES = [(2, 64, 64, 64, True, 0), (3, 200, 200, 128, True, 16),
                (2, 130, 190, 24, False, 100), (2, 257, 257, 8, True, 70),
                (1, 100, 60, 128, True, 0), (2, 64, 96, 40, False, 0),
-               (2, 300, 300, 128, False, 37)]
+               (2, 300, 300, 128, False, 37), (4, 1024, 1024, 128, True, 0),
+               (4, 1024, 1024, 128, True, 300)]
 
 
 @pytest.mark.cuda
@@ -341,6 +418,19 @@ def test_new_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="divide or be a multiple"):
         from repro_torch.kernels.ragged_mlp import row_tile
         row_tile(48)
+
+
+@pytest.mark.parametrize("bm,wide,rows", [(8, False, 8), (64, False, 64), (128, False, 64),
+                                           (8, True, 8), (32, True, 32), (64, True, 64),
+                                           (128, True, 128), (192, True, 64),
+                                           (256, True, 128)])
+def test_row_tile_never_straddles_two_row_blocks(bm, wide, rows):
+    """The rows a tile keeps: the tile loop's 64, the bf16 ragged_matmul
+    kernel's 128 where bm allows it, or the whole row block when it is
+    smaller; a tile never holds two experts."""
+    from repro_torch.kernels.ragged_mlp import row_tile
+    assert row_tile(bm, wide=wide) == rows
+    assert bm % rows == 0
 
 
 def test_ragged_swiglu_and_flash_attention_take_the_plain_version_on_the_cpu():
