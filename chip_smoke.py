@@ -9,15 +9,18 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   -- nvcc builds every kernel of the port from
               src/repro_torch/kernels/csrc (sm_90a), one nvcc per source,
               all started together; ptxas's registers and spills of the
-              Hopper (TMA + wgmma) kernels are printed.
+              Hopper (TMA + wgmma) kernels are printed, and a spill fails.
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (serving: the grouped kernels;
               training: dispatch, ragged matmul at its three layouts and
               SwiGLU, fused MoE; attention: flash attention at
               Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
               plain version, a one-call PyTorch yardstick where there is
-              one, and the card's bound.  The Hopper kernels are relaunched
-              and must repeat their first output bit for bit.
+              one, and the card's bound.  Times are device times (CUDA
+              events around calls queued while a spin kernel holds the card:
+              device_ms), with the host's wall clock per call of
+              back-to-back calls beside them.  The Hopper kernels are
+              relaunched and must repeat their first output bit for bit.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace; every request must finish with finite logits
@@ -109,8 +112,11 @@ def device_phase() -> str:
 
 
 # the Hopper (TMA + wgmma) kernels, whose register and spill report the build
-# phase prints by name: their accumulators must stay in registers
-HOPPER_KERNELS = ("ragged_matmul_wgmma", "flash_wgmma_kernel")
+# phase prints by name: their accumulators must stay in registers (the
+# shared mainloop's instantiations name their epilogue: RaggedStore for
+# ragged_matmul, FusedUpStore and FusedCombine for fused_moe's passes)
+HOPPER_KERNELS = ("ragged_wgmma", "grouped_matmul_wgmma", "flash_wgmma_kernel")
+NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
 
 
 def ptxas_report(log: str) -> list:
@@ -135,27 +141,64 @@ def build_phase() -> None:
     for name, info in build.build().items():
         print(f"built {name} in {info['seconds']:.1f} s"
               + (" (cached)" if info["cached"] else ""), flush=True)
+        for ln in info["log"].splitlines():
+            if "warning" in ln.lower():
+                print(f"  {ln.strip()}", flush=True)
         for fn, regs, spill in ptxas_report(info["log"]):
             hopper = next((k for k in HOPPER_KERNELS if k in fn), None)
             if hopper:
-                args = fn[fn.index(hopper) + len(hopper):][:12]
+                args = fn[fn.index(hopper) + len(hopper):][:90]
                 print(f"  ptxas {hopper}{args}: {regs}; {spill}", flush=True)
+                if NO_SPILLS not in spill:
+                    raise SystemExit(f"{hopper}{args} spills: {spill}")
     print(f"build phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean time of one call on the card, from CUDA events after warm-up."""
+SPIN_CYCLES_PER_MS = 2.0e6     # the H100's SM clock is at most 1.98 GHz
+MAX_SPIN_MS = 100.0            # a call that synchronizes is never queued, however long
+
+
+def device_ms(fn, iters: int = 10, kernel_call: bool = False) -> tuple[float, float, str]:
+    """(device ms, host ms, note) of one call after two warm-up calls.
+
+    Host: the wall clock of ``iters`` back-to-back calls ending in a
+    synchronize, over ``iters``.  Device: CUDA events around ``iters`` calls
+    that the host queued while a spin kernel held the card, so the card runs
+    them back to back and the events read its time, not the host's (events
+    around calls the card runs as they come read the host's time when a
+    small kernel's wrapper costs more than the kernel).  The card must not
+    have reached the first call when the last was queued (retried once with
+    a longer spin).  A call that synchronizes the host can never be queued:
+    a kernel's wrapper must not (``kernel_call``: fail), and for a plain version
+    or library call the note says that its time includes the host's."""
     import torch
-    for _ in range(warmup):
+    for _ in range(2):
         fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    stop.record()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_ms = 2 * enqueue_ms + 1.0
+    for _ in range(2):
+        torch.cuda._sleep(int(min(spin_ms, MAX_SPIN_MS) * SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            break
+        spin_ms *= 4
+    if kernel_call and not queued:
+        raise SystemExit("a kernel wrapper synchronized the host: its device time "
+                         "cannot be read apart from the host's")
+    note = "" if queued else " (synchronizes: includes host time)"
+    return start.elapsed_time(stop) / iters, host_ms, note
 
 
 def bound_ms(E_, M, K, N, n_weights: int, elem_bytes: int = 2):
@@ -165,6 +208,15 @@ def bound_ms(E_, M, K, N, n_weights: int, elem_bytes: int = 2):
     flops = 2 * n_weights * E_ * M * K * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# the keys of a kernel's line taken from its first (main-path) shape
+ROW_KEYS = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
+def _fmt(ms) -> str:
+    return "-" if ms is None else f"{ms:.4f}"
 
 
 def _max_err(a, b) -> float:
@@ -233,31 +285,35 @@ def kernels_phase() -> dict:
             torch.cuda.synchronize()
             err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
             ok = _close(got32, want32, TOL_F32) and _close(gotb, wantb, TOL_BF16)
-            ms = cuda_ms(lambda: s["fn"](xb, *wsb))
-            plain_ms = cuda_ms(lambda: s["plain"](xb, *wsb))
-            lib_ms = (cuda_ms(lambda: s["library"](xb, *wsb))
-                      if s["library"] is not None else None)
-            bms, by = bound_ms(E, M, s["K"], s["N"], len(wsb))
-            row = {"M": M, "K": s["K"], "N": s["N"], "max_abs_err": errb,
-                   "max_abs_err_f32": err32, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-            shapes.append(row)
-            print(f"{name} E={E} M={M} K={s['K']} N={s['N']}: "
-                  f"{'ok' if ok else 'MISMATCH'} err bf16 {errb:.3e} f32 {err32:.3e} | "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
-                  flush=True)
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at M={M} "
-                                 f"(bf16 tol {TOL_BF16}, f32 tol {TOL_F32})")
+                                 f"(bf16 tol {TOL_BF16}, f32 tol {TOL_F32}): "
+                                 f"err bf16 {errb:.3e} f32 {err32:.3e}")
+            if name == "grouped_matmul":
+                repeat_check(name, f"E={E} M={M} K={s['K']} N={s['N']}",
+                             lambda: s["fn"](xb, *wsb), gotb)
+            ms, host_ms, _ = device_ms(lambda: s["fn"](xb, *wsb), kernel_call=True)
+            plain_ms, plain_host, plain_note = device_ms(lambda: s["plain"](xb, *wsb))
+            lib_ms, lib_host, lib_note = (device_ms(lambda: s["library"](xb, *wsb))
+                                          if s["library"] is not None else (None, None, ""))
+            bms, by = bound_ms(E, M, s["K"], s["N"], len(wsb))
+            row = {"M": M, "K": s["K"], "N": s["N"], "max_abs_err": errb,
+                   "max_abs_err_f32": err32, "ms": ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib_ms}
+            shapes.append(row)
+            print(f"{name} E={E} M={M} K={s['K']} N={s['N']}: ok err bf16 {errb:.3e} "
+                  f"f32 {err32:.3e} | device ms: kernel {ms:.4f}, plain {plain_ms:.4f}"
+                  f"{plain_note}, library {_fmt(lib_ms)}{lib_note} | host ms per call: "
+                  f"kernel {host_ms:.4f}, "
+                  f"plain {plain_host:.4f}, library {_fmt(lib_host)} | bound "
+                  f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound", flush=True)
         head = shapes[0]           # the decode wave: most of the path's launches
         entries[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
             "replaces": s["replaces"], "launches": 0,
-            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+            **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
     del w1, w3, w2, wb, w32
@@ -343,7 +399,8 @@ def train_kernels_phase() -> dict:
             # every row of the send buffer is live here, so index_select of
             # the source rows is the same function on these inputs
             lambda x, src, _: torch.index_select(x, 0, src),
-            el * 2 * rows * D_MODEL, 0, 0.0)],
+            # each of the T source rows read once, the R rows written
+            el * (T_CHUNK + rows) * D_MODEL, 0, 0.0)],
         "gather_combine": [
             (f"T={T_CHUNK} K={TOP_K} d={D_MODEL} (EP combine)", dc.gather_combine,
              ref.gather_combine_ref,
@@ -416,10 +473,16 @@ def train_kernels_phase() -> dict:
             torch.cuda.synchronize()
             err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
             ok = (_close(got32, want32, max(tol32, 1e-6)) and _close(gotb, wantb, TOL_BF16))
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version at {label}: "
+                                 f"err bf16 {errb:.3e} f32 {err32:.3e}")
+            if name in ("ragged_matmul", "fused_moe"):
+                repeat_check(name, label, lambda: fn(*argsb), gotb)
             iters = 3 if flops > 1e11 else 10
-            ms = cuda_ms(lambda: fn(*argsb), iters=iters)
-            plain_ms = cuda_ms(lambda: plain(*argsb), iters=iters)
-            lib_ms = lib_err = None
+            ms, host_ms, _ = device_ms(lambda: fn(*argsb), iters, kernel_call=True)
+            plain_ms, plain_host, plain_note = device_ms(lambda: plain(*argsb), iters)
+            lib_ms = lib_host = lib_err = None
+            lib_note = ""
             if library is not None:
                 try:
                     lib_out = library(*argsb)
@@ -437,30 +500,26 @@ def train_kernels_phase() -> dict:
                         raise SystemExit(f"{name}'s library yardstick disagrees with "
                                          f"the plain version at {label}: {lib_err:.3e}")
                     del lib_out, lib_want
-                    lib_ms = cuda_ms(lambda: library(*argsb), iters=iters)
+                    lib_ms, lib_host, lib_note = device_ms(lambda: library(*argsb), iters)
             bms, by = _bound(nbytes, flops)
             row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                   "library_ms": lib_ms}
+                   "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": lib_ms}
             shapes.append(row)
-            print(f"{name} {label}: {'ok' if ok else 'MISMATCH'} err bf16 {errb:.3e} "
-                  f"f32 {err32:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                  f"{'' if lib_err is None else f' (err {lib_err:.3e})'}, "
-                  f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound",
-                  flush=True)
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version at {label}")
-            if name == "ragged_matmul":
-                repeat_check(name, label, lambda: fn(*argsb), gotb)
+            print(f"{name} {label}: ok err bf16 {errb:.3e} f32 {err32:.3e} | device ms: "
+                  f"kernel {ms:.4f}, plain {plain_ms:.4f}{plain_note}, library "
+                  f"{_fmt(lib_ms)}{lib_note}"
+                  f"{'' if lib_err is None else f' (err {lib_err:.3e})'} | host ms per "
+                  f"call: kernel {host_ms:.4f}, plain {plain_host:.4f}, library "
+                  f"{_fmt(lib_host)} | bound {bms:.4f} ms ({by}), "
+                  f"{100 * bms / ms:.1f}% of bound", flush=True)
             del got32, want32, gotb, wantb, argsb
         head = shapes[0]
         entries[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": 0,
-            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+            **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
     del w1, w3, w2, buf, h, x_rows, x_chunk
@@ -527,20 +586,24 @@ def attention_kernels_phase() -> dict:
                                  f"at {label}: {lib_err:.3e}")
             del got, want, lib_out
             iters = 3 if S > 4096 else 10
-            ms = cuda_ms(kernel, iters=iters)
-            plain_ms = cuda_ms(plain, iters=3)
-            lib_ms = cuda_ms(library, iters=iters)
+            ms, host_ms, _ = device_ms(kernel, iters, kernel_call=True)
+            plain_ms, plain_host, plain_note = device_ms(plain, 3)
+            lib_ms, lib_host, lib_note = device_ms(library, iters)
             # q, k, v read once and out written once; QKᵀ and P·V over the
             # visible pairs, at the bf16 tensor rate (fp32: the CUDA-core rate)
             bms, by = _bound(el * 4 * BH * S * HEAD_DIM, 4 * HEAD_DIM * pairs * BH,
                              BF16_FLOPS if el == 2 else FP32_FLOPS)
-            row = {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            row = {"shape": label, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib_ms}
             shapes.append(row)
             print(f"flash_attention {label}: {'ok' if ok else 'MISMATCH'} err {err:.3e} "
-                  f"(tol {tol}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                  f"{lib_ms:.4f} ms (err {lib_err:.3e}), bound {bms:.4f} ms ({by}, "
-                  f"{pairs} pairs x {BH}), {100 * bms / ms:.1f}% of bound", flush=True)
+                  f"(tol {tol}) | device ms: kernel {ms:.4f}, plain {plain_ms:.4f}"
+                  f"{plain_note}, SDPA {lib_ms:.4f}{lib_note} (err {lib_err:.3e}) | host "
+                  f"ms per call: kernel "
+                  f"{host_ms:.4f}, plain {plain_host:.4f}, SDPA {lib_host:.4f} | bound "
+                  f"{bms:.4f} ms ({by}, {pairs} pairs x {BH}), "
+                  f"{100 * bms / ms:.1f}% of bound", flush=True)
             if not ok:
                 raise SystemExit(f"flash_attention disagrees with its plain version at "
                                  f"{label}")
@@ -551,17 +614,17 @@ def attention_kernels_phase() -> dict:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:76", "launches": 0,
-        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
+        **{k: head[k] for k in ROW_KEYS},
         "shapes": shapes}}
 
 
 # device kernels of a training step by group, from their names in the
 # profiler (the tile loop's ragged kernels are one template: <type, weights,
-# transposed>; bf16 ragged_matmul is the Hopper kernel)
-STEP_GROUPS = {"fused_moe": ("fused_",),
+# transposed>; bf16 ragged_matmul and fused_moe's up and down passes are the
+# Hopper mainloop, named by their epilogues)
+STEP_GROUPS = {"fused_moe": ("FusedUpStore", "FusedCombine"),
                "ragged_swiglu": ("ragged_kernel<__nv_bfloat16, 2",),
-               "ragged_matmul": ("ragged_matmul_wgmma",),
+               "ragged_matmul": ("RaggedStore",),
                "dispatch": ("scatter_rows", "gather_combine"),
                "grouped (serving)": ("grouped_",),
                "fp32 GEMMs (_segment_outer)": ("gemm_f32f32",),

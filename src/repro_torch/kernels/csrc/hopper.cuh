@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (ragged_mlp.cu's bf16 ragged_matmul, flash_attention.cu's bf16 kernel).
+// (ragged_wgmma.cuh's mainloop under bf16 ragged_matmul and fused_moe,
+// grouped_mlp.cu's bf16 grouped_matmul, flash_attention.cu's bf16 kernel).
 //
 // Host: tensor maps (TMA descriptors) encoded per call, since the pointers
 // change from call to call, through cuTensorMapEncodeTiled fetched with
@@ -8,7 +9,8 @@
 // CUtensorMap` parameters.
 //
 // Device: mbarrier init / arrive / arrive-expect-tx / parity wait; TMA tile
-// loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an mbarrier; the
+// loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an mbarrier;
+// gathered 16-byte cp.async copies that arrive on an mbarrier; the
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile; wgmma fence,
 // commit and wait; the m64nNk16 bf16 -> fp32 products (A from shared memory
 // or from registers, B from shared memory, K-major or N-major); setmaxnreg.
@@ -152,6 +154,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- device: gathered rows (cp.async; TMA cannot gather) --------------------
+
+// 16 bytes from global `src` to shared `dst`, or 16 zero bytes when `bytes`
+// is 0 (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on `bar` once this thread's earlier cp.async copies have landed;
+// noinc: the arrival is one of the barrier's initial count
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// order shared-memory writes of the generic proxy (cp.async, st.shared)
+// before the async proxy's reads of them (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- device: wgmma ---------------------------------------------------------

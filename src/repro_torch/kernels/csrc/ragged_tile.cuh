@@ -1,7 +1,8 @@
-// The tiled loop of every expert-FFN kernel of the port (grouped_mlp.cu,
-// ragged_mlp.cu and fused_moe.cu).  The caller picks the expert: per grid
-// z index in the capacity layout, per row block from block_to_expert in the
-// ragged one.
+// The tiled loop of the port's first expert-FFN kernels: the fp32 forms of
+// grouped_mlp.cu, ragged_mlp.cu and fused_moe.cu, and bf16 grouped_swiglu
+// and ragged_swiglu (the other bf16 kernels run hopper.cuh's designs).  The
+// caller picks the expert: per grid z index in the capacity layout, per row
+// block from block_to_expert in the ragged one.
 //
 // Ragged layout (the JAX package's MegaBlocks-style flat layout): A (R, K)
 // rows grouped by expert, each expert's rows padded to the row-block size

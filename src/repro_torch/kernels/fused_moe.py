@@ -5,8 +5,10 @@ over the ragged layout in one call: token rows are gathered through the
 inverted slot map ``src`` inside the kernel, so the (R, d) dispatch buffer
 never exists.  On a CUDA tensor it launches the kernels of
 ``csrc/fused_moe.cu`` (a memset and three launches: up, down + atomic
-combine, cast); on a CPU tensor it computes the plain version of
-``kernels/ref.py``.  It counts its calls on the card in ``.launches``.
+combine, cast; bf16 runs both passes on the Hopper mainloop of
+``csrc/ragged_wgmma.cuh``, fp32 on the tile loop of ``csrc/ragged_tile.cuh``);
+on a CPU tensor it computes the plain version of ``kernels/ref.py``.  It
+counts its calls on the card in ``.launches``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def fused_moe(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Ten
     if d % 8 or f % 8:
         raise ValueError(f"{op}: d={d} and f={f} must be multiples of 8")
     bm = R // nb
-    tm = row_tile(bm)
+    tm = row_tile(bm, wide=x.dtype == torch.bfloat16)
     src = _cuda.index32(src, x.device)
     b2e = _cuda.index32(block_to_expert, x.device)
     if wslot is None:
@@ -63,7 +65,7 @@ def fused_moe(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Ten
     if T * d == 0:
         return out.zero_()
     _cuda.launch("fused_moe", f"fused_moe_{_cuda.SUFFIX[x.dtype]}",
-                 args + [T, R, d, f, bm, tm], x.device)
+                 args + [T, R, d, f, E, bm, tm], x.device)
     fused_moe.launches += 1
     return out
 

@@ -3,10 +3,13 @@
 ``grouped_swiglu`` and ``grouped_matmul`` take the capacity layout of the
 expert FFN, x (E, M, K) against stacked expert weights (E, K, N).  On a CUDA
 tensor they launch the hand-written kernels of ``csrc/grouped_mlp.cu``
-(built by ``kernels/build.py``); on a CPU tensor they compute the plain
-version from ``kernels/ref.py``.  There is no other path: a failed build or
-launch raises, and so does a launch under autograd on operands that require
-grad (the kernels have no backward; training takes the fused EP leg).
+(built by ``kernels/build.py``): bf16 ``grouped_matmul`` streams the weights
+through a TMA ring into ``wgmma`` (``csrc/hopper.cuh``), the fp32 form and
+``grouped_swiglu`` run the tile loop of ``csrc/ragged_tile.cuh``.  On a CPU
+tensor they compute the plain version from ``kernels/ref.py``.  There is no
+other path: a failed build or launch raises, and so does a launch under
+autograd on operands that require grad (the kernels have no backward;
+training takes the fused EP leg).
 Each wrapper counts its kernel launches in ``.launches``.
 """
 

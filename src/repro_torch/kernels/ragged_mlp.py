@@ -6,8 +6,8 @@ one expert per ``block_m``-row block (``block_to_expert``), and writes 0 at
 and past ``total_rows``; ``ragged_swiglu`` computes silu(x @ w1[e]) *
 (x @ w3[e]) over the same layout.  On a CUDA tensor each launches its
 kernel of ``csrc/ragged_mlp.cu``, picked by dtype alone: bf16
-``ragged_matmul`` runs the Hopper kernel (TMA, an mbarrier ring, wgmma;
-128- or 64-row tiles), fp32 ``ragged_matmul`` and ``ragged_swiglu`` in both
+``ragged_matmul`` runs the Hopper mainloop of ``csrc/ragged_wgmma.cuh``
+(TMA, an mbarrier ring, wgmma; 128- or 64-row tiles), fp32 ``ragged_matmul`` and ``ragged_swiglu`` in both
 dtypes the simple tile loop of ``csrc/ragged_tile.cuh``.  On a CPU tensor
 each computes the plain version of ``kernels/ref.py``.  Each counts its
 kernel launches in ``.launches``.
@@ -25,8 +25,9 @@ _TILE_M = 64          # the tile loop's row tile, and the Hopper kernel's small 
 def row_tile(block_m: int, wide: bool = False) -> int:
     """The rows a kernel's tile keeps: 64, or the whole row block when it is
     smaller, so a tile's rows never straddle two experts.  ``wide`` (the
-    bf16 ``ragged_matmul`` kernel): 128 when ``block_m`` is a multiple of
-    128, a 128-row tile holding one row block."""
+    bf16 kernels on ``csrc/ragged_wgmma.cuh``: ``ragged_matmul`` and
+    ``fused_moe``): 128 when ``block_m`` is a multiple of 128, a 128-row
+    tile holding one row block."""
     if block_m % _TILE_M == 0:
         return 2 * _TILE_M if wide and block_m % (2 * _TILE_M) == 0 else _TILE_M
     if _TILE_M % block_m == 0:

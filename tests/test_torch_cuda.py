@@ -81,6 +81,49 @@ def test_grouped_matmul_kernel_matches_plain(cuda, shape, dtype):
     _assert_close(got, ref.grouped_matmul_ref(x, w), dtype)
 
 
+def _exact(shape, g):
+    """Small integers: bf16 holds them, and with ``_exact_weights`` every
+    fp32 product and sum over the tests' K is exact."""
+    return torch.randint(-4, 5, shape, generator=g).float()
+
+
+def _exact_weights(shape, g):
+    """0 and +-2^-k, k < 4."""
+    return (2.0 ** -torch.randint(0, 4, shape, generator=g).float()
+            * torch.randint(-1, 2, shape, generator=g).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_grouped_matmul_bf16_is_exact_under_exact_arithmetic(cuda, shape):
+    """Integer rows and power-of-two weights: the Hopper kernel's fp32 sums
+    are exact, so it equals the plain version bit for bit at every M, N and
+    K edge."""
+    E, M, K, N = shape
+    g = torch.Generator(device="cpu").manual_seed(M * K + N)
+    x = _exact((E, M, K), g).to(cuda, torch.bfloat16)
+    w = _exact_weights((E, K, N), g).to(cuda, torch.bfloat16)
+    torch.testing.assert_close(gm.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 64])
+def test_grouped_matmul_bf16_is_deterministic_at_large_k(cuda, M):
+    """Mixtral-8x7B's down-projection at a decode wave (M 4) and at a full
+    64-row tile: a pipeline fault (a stage overwritten before its products
+    are done) shows as rare mismatches, so 8 relaunches must equal the first
+    bit for bit, and the plain version to tolerance."""
+    E, K, N = 8, 14336, 4096
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((E, M, K), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((E, K, N), generator=g, device=cuda) * K ** -0.5).bfloat16()
+    first = gm.grouped_matmul(x, w)
+    for _ in range(8):
+        torch.testing.assert_close(gm.grouped_matmul(x, w), first, rtol=0, atol=0)
+    _assert_close(first, ref.grouped_matmul_ref(x, w), torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_expert_ffn_on_card_matches_plain(cuda):
     """Folded batch rows through both kernels, one launch each."""
@@ -118,9 +161,10 @@ def test_grouped_kernels_refuse_autograd(cuda):
         gm.grouped_matmul(x, w)                # serving: no autograd, fine
 
 
-def _ragged_case(T, K, E, d, f, bm, dtype, device, seed=0, skew=False):
+def _ragged_case(T, K, E, d, f, bm, dtype, device, seed=0, skew=False, dead=0):
     """A routed ragged layout (the receiver's plan) with tokens, weights at
-    the model's init scale and per-row combine weights."""
+    the model's init scale and per-row combine weights; ``dead`` more row
+    blocks past the ones routing can fill."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if skew:
         ids = torch.where(torch.rand((T, K), generator=g) < 0.7, 0,
@@ -128,7 +172,7 @@ def _ragged_case(T, K, E, d, f, bm, dtype, device, seed=0, skew=False):
         ids[:, 1:] = (ids[:, :1] + 1 + ids[:, 1:] % (E - 1)) % E if K > 1 else ids[:, 1:]
     else:
         ids = torch.stack([torch.randperm(E, generator=g)[:K] for _ in range(T)])
-    R = -(-(T * K + E * bm) // bm) * bm
+    R = (-(-(T * K + E * bm) // bm) + dead) * bm
     plan = dsp.make_ragged_plan(ids.to(torch.int32), E, R, bm)
     pos = dsp.invert_slots(plan.slots, R)
     src = torch.where(pos >= 0, pos // K, -1).to(torch.int32)
@@ -195,9 +239,7 @@ def _blocked_case(nb, live_blocks, E, K, N, bm, trans, seed, exact=False):
     b2e = torch.sort(torch.randint(0, E, (nb,), generator=g)).values.to(torch.int32)
     wshape = (E, N, K) if trans else (E, K, N)
     if exact:
-        x = torch.randint(-4, 5, (nb * bm, K), generator=g).float()
-        w = (2.0 ** -torch.randint(0, 4, wshape, generator=g).float()
-             * torch.randint(-1, 2, wshape, generator=g).float())
+        x, w = _exact((nb * bm, K), g), _exact_weights(wshape, g)
     else:
         x = torch.randn((nb * bm, K), generator=g)
         w = torch.randn(wshape, generator=g) * K ** -0.5
@@ -276,6 +318,47 @@ def test_moe_ffn_on_card_matches_cpu(cuda):
         outs[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (T, K, E, d, f, bm): 8-, 64- and 128-row blocks; d off the 64-deep k-block
+# (the gathered rows' K tail) and f off the 128-column up tile, the down
+# tile's columns past d; two slots per token, or one as on the EP path
+FUSED_BF16_CASES = [(40, 2, 4, 72, 200, 8), (150, 2, 4, 136, 264, 64),
+                    (300, 2, 8, 200, 328, 128), (256, 1, 8, 256, 384, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K,E,d,f,bm", FUSED_BF16_CASES)
+def test_fused_moe_bf16_kernel_matches_plain(cuda, T, K, E, d, f, bm):
+    """The bf16 Hopper passes (rows gathered by cp.async, the combine as the
+    down pass's epilogue) against the plain version under skewed routing,
+    with dead row blocks past the routed ones."""
+    (x, w1, w3, w2, wslot, _), (_, b2e, total, src), R = _ragged_case(
+        T, K, E, d, f, bm, torch.bfloat16, cuda, seed=T + d, skew=True, dead=3)
+    assert int(total) < R - 2 * bm
+    before = fused_moe.launches
+    for w in (None, wslot):
+        got = fused_moe(x, w1, w3, w2, src, w, total, b2e)
+        want = ref.fused_moe_rows_ref(x, w1, w3, w2, src, w, b2e, total)
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_close(got, want, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_moe.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_fused_moe_bf16_is_deterministic_with_one_slot_per_token(cuda):
+    """With a (T, 1) slot map, as on the EP path, each output row is 0 plus
+    one fp32 term, so the atomic combine is order-free: 8 relaunches must
+    equal the first bit for bit."""
+    (x, w1, w3, w2, wslot, _), (_, b2e, total, src), _ = _ragged_case(
+        512, 1, 8, 512, 1024, 128, torch.bfloat16, cuda, seed=7, skew=True, dead=2)
+    first = fused_moe(x, w1, w3, w2, src, wslot, total, b2e)
+    for _ in range(8):
+        torch.testing.assert_close(fused_moe(x, w1, w3, w2, src, wslot, total, b2e),
+                                   first, rtol=0, atol=0)
+    _assert_close(first, ref.fused_moe_rows_ref(x, w1, w3, w2, src, wslot, b2e, total),
+                  torch.bfloat16)
 
 
 @pytest.mark.cuda
