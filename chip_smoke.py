@@ -13,7 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (serving: the grouped kernels;
               training: dispatch, ragged matmul at its three layouts and
-              SwiGLU, fused MoE; attention: flash attention at
+              SwiGLU, fused MoE, the expert weights' gradient written and
+              added into a buffer; attention: flash attention at
               Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
               plain version, a one-call PyTorch yardstick where there is
               one, and the card's bound.  Times are device times (CUDA
@@ -35,16 +36,17 @@ Phases, each printing its own lines; any failure exits non-zero:
               grad norm must be finite and every kernel of the path must
               have launched.  Then one more step under torch.profiler, and
               the peak of one forward + backward against MACT's modeled
-              activation bytes, at MACT's schedule and unchunked.
+              activation bytes at MACT's schedule, at (2, 1) and unchunked:
+              two sequential chunks must not raise it above one chunk's.
 7. train (ragged leg) -- the same model and steps through Trainer, built as
               launch/train.py builds it, on the three-launch ragged leg
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
               fused_moe must not launch.  The same profile and peaks (Eq. 2
-              with the dispatch buffer's term), and at depth 1 too.
-8. check   -- the reduced Mixtral config in fp32 on the card against the
-              same weights on the CPU: prefill logits and greedy token
-              streams must agree, and 2 training steps on each leg must give
-              the same schedules and losses.
+              with the dispatch buffer's term).
+8. check   -- the reduced Mixtral config in fp32 on the card (TF32 off for
+              matmuls and cuDNN) against the same weights on the CPU: prefill
+              logits and greedy token streams must agree, and 2 training
+              steps on each leg must give the same schedules and losses.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -114,8 +116,10 @@ def device_phase() -> str:
 # the Hopper (TMA + wgmma) kernels, whose register and spill report the build
 # phase prints by name: their accumulators must stay in registers (the
 # shared mainloop's instantiations name their epilogue: RaggedStore for
-# ragged_matmul, FusedUpStore and FusedCombine for fused_moe's passes)
-HOPPER_KERNELS = ("ragged_wgmma", "grouped_matmul_wgmma", "flash_wgmma_kernel")
+# ragged_matmul, SwigluStore for ragged_swiglu, FusedUpStore and
+# FusedCombine for fused_moe's passes)
+HOPPER_KERNELS = ("ragged_wgmma", "grouped_matmul_wgmma", "flash_wgmma_kernel",
+                  "weight_grad_wgmma")
 NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -476,7 +480,7 @@ def train_kernels_phase() -> dict:
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at {label}: "
                                  f"err bf16 {errb:.3e} f32 {err32:.3e}")
-            if name in ("ragged_matmul", "fused_moe"):
+            if name in ("ragged_matmul", "ragged_swiglu", "fused_moe"):
                 repeat_check(name, label, lambda: fn(*argsb), gotb)
             iters = 3 if flops > 1e11 else 10
             ms, host_ms, _ = device_ms(lambda: fn(*argsb), iters, kernel_call=True)
@@ -522,9 +526,139 @@ def train_kernels_phase() -> dict:
             **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
-    del w1, w3, w2, buf, h, x_rows, x_chunk
+    del w1, w3, w2, x_rows, x_chunk
+    torch.cuda.empty_cache()
+    entries["segment_outer"] = weight_grad_kernel(buf, h, b2e, total, live, offs, gen)
+    del buf, h
     torch.cuda.empty_cache()
     return entries
+
+
+def _wgrad_close(got, want, s=None) -> bool:
+    """The weight gradient against its plain version, the same products
+    summed in fp32 in other orders.  fp32: 1e-5 of the largest magnitude (a
+    sum of ~600 products drifts by ~sqrt(n) eps of its terms, however small
+    the sum).  bf16: one ulp, 1e-2 absolute and relative, and when adding
+    into the buffer (``s``: the bf16 sum) the sum's own ulp on top: it is
+    rounded to bf16 before the add."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return bool((err <= 1e-5 * (want.abs().max() + want.abs())).all())
+    bound = TOL_BF16 * (1 + want.float().abs())
+    if s is not None:
+        bound += TOL_BF16 * s.float().abs()
+    return bool((err <= bound).all())
+
+
+def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen) -> dict:
+    """The expert weights' gradient (``segment_outer``) at the path's three
+    calls per chunk, dw1 / dw3 = bufᵀ @ dh (E, d, f) and dw2 = aᵀ @ g_buf
+    (E, f, d), written (a layer's first chunk) and added into the buffer
+    (every later one): checked against the plain version in fp32 and bf16,
+    relaunched, and timed beside the plain version, its bound and
+    ``torch._grouped_mm``'s 2-D x 2-D form (groups along the rows) where
+    this PyTorch has it.  Returns the kernel's entry."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.weight_grad import segment_outer
+
+    dev = buf.device
+    R = buf.shape[0]
+    liverows = (torch.arange(R, device=dev) < live)[:, None]
+    g_buf = torch.randn((R, D_MODEL), generator=gen, device=dev) * liverows
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    el = 2
+    shapes = []
+    # (label, a, b, out (E, K, N), accumulate)
+    cases = [("dw1 = bufᵀ @ dh1, written", buf, h, (E, D_MODEL, D_FF), False),
+             ("dw1 = bufᵀ @ dh1, added", buf, h, (E, D_MODEL, D_FF), True),
+             ("dw2 = aᵀ @ g_buf, added", h, g_buf, (E, D_FF, D_MODEL), True)]
+    for label, a32, b32, oshape, acc in cases:
+        K, N = oshape[1], oshape[2]
+        # on the path the buffer holds an earlier chunk's gradient, of the new
+        # sum's size: drawn at the sum's spread, a dropped or doubled add is
+        # off by ~|sum|, far above the tolerance
+        sum32 = ref.segment_outer_ref(a32, b32, b2e, total,
+                                      torch.empty(oshape, device=dev), False)
+        old32 = torch.randn(oshape, generator=gen, device=dev) * sum32.std()
+        del sum32
+        outs = {}
+        blind = ""
+        for dt in (torch.float32, torch.bfloat16):
+            a, b, old = a32.to(dt), b32.to(dt), old32.to(dt)
+            got = segment_outer(a, b, b2e, total, BLOCK_M, old.clone(), accumulate=acc)
+            want = ref.segment_outer_ref(a, b, b2e, total, old.clone(), acc)
+            s = (ref.segment_outer_ref(a, b, b2e, total, torch.empty_like(old), False)
+                 if acc and dt == torch.bfloat16 else None)
+            torch.cuda.synchronize()
+            outs[dt] = (_max_err(got, want), _wgrad_close(got, want, s))
+            if s is not None:
+                # the check must reject a kernel that skips the add or adds twice
+                doubled = (want.float() + old.float()).to(dt)
+                skip_err, twice_err = _max_err(s, want), _max_err(doubled, want)
+                if _wgrad_close(s, want, s) or _wgrad_close(doubled, want, s):
+                    raise SystemExit(f"segment_outer's check at {label} accepts a kernel "
+                                     f"that skips the add ({skip_err:.3e}) or adds twice "
+                                     f"({twice_err:.3e})")
+                blind = (f" (a skipped add would be off by {skip_err:.3e}, a doubled one "
+                         f"by {twice_err:.3e}: both rejected)")
+                del doubled
+            del got, want, s
+        (err32, ok32), (errb, okb) = outs[torch.float32], outs[torch.bfloat16]
+        if not (ok32 and okb):
+            raise SystemExit(f"segment_outer disagrees with its plain version at {label}: "
+                             f"err bf16 {errb:.3e} f32 {err32:.3e}")
+        a, b, old = a32.bfloat16(), b32.bfloat16(), old32.bfloat16()
+        out = old.clone()
+        first = segment_outer(a, b, b2e, total, BLOCK_M, old.clone(), accumulate=acc)
+        repeat_check("segment_outer", label, lambda: segment_outer(
+            a, b, b2e, total, BLOCK_M, old.clone(), accumulate=acc), first)
+        del first
+        # timed in place, as the path calls it (adding: out grows, harmlessly)
+        ms, host_ms, _ = device_ms(lambda: segment_outer(a, b, b2e, total, BLOCK_M, out,
+                                                         accumulate=acc), 5, kernel_call=True)
+        plain_ms, plain_host, plain_note = device_ms(
+            lambda: ref.segment_outer_ref(a, b, b2e, total, out, acc), 3)
+        lib_ms = lib_host = lib_err = None
+        lib_note = ""
+        if grouped_mm is not None and not acc:
+            try:
+                lib_out = grouped_mm(a[:live].T, b[:live], offs=offs)
+            except (RuntimeError, NotImplementedError) as exc:
+                print(f"segment_outer {label}: library call refused: "
+                      f"{str(exc).splitlines()[0][:200]}", flush=True)
+            else:
+                want = ref.segment_outer_ref(a, b, b2e, total, old.clone(), False)
+                lib_err = _max_err(lib_out, want)
+                if not _close(lib_out, want, TOL_BF16):
+                    raise SystemExit(f"segment_outer's library yardstick disagrees with "
+                                     f"the plain version at {label}: {lib_err:.3e}")
+                del lib_out, want
+                lib_ms, lib_host, lib_note = device_ms(
+                    lambda: grouped_mm(a[:live].T, b[:live], offs=offs), 5)
+        # the live rows of a and b read once, the output written once (and,
+        # adding, read once); the products over the live rows
+        nbytes = el * (live * (K + N) + (2 if acc else 1) * E * K * N)
+        bms, by = _bound(nbytes, 2 * live * K * N)
+        row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32, "ms": ms,
+               "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "library_ms": lib_ms}
+        shapes.append(row)
+        print(f"segment_outer {label} (R={R}, {live} live, E={E}, K={K}, N={N}): ok err "
+              f"bf16 {errb:.3e} f32 {err32:.3e} | device ms: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}{plain_note}, library {_fmt(lib_ms)}{lib_note}"
+              f"{'' if lib_err is None else f' (err {lib_err:.3e})'}{blind} | host ms per call: "
+              f"kernel {host_ms:.4f}, plain {plain_host:.4f}, library {_fmt(lib_host)} | "
+              f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound", flush=True)
+        del a, b, old, out, old32
+        torch.cuda.empty_cache()
+    head = shapes[0]       # written: the one form a library call computes
+    return {"name": "segment_outer", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/weight_grad.cu",
+            "replaces": "src/repro/kernels/ops.py:158",
+            "note": "not a pallas_call: mirrors the JAX package's lax.scan",
+            "launches": 0, **{k: head[k] for k in ROW_KEYS}, "shapes": shapes}
 
 
 def attention_kernels_phase() -> dict:
@@ -619,16 +753,14 @@ def attention_kernels_phase() -> dict:
 
 
 # device kernels of a training step by group, from their names in the
-# profiler (the tile loop's ragged kernels are one template: <type, weights,
-# transposed>; bf16 ragged_matmul and fused_moe's up and down passes are the
-# Hopper mainloop, named by their epilogues)
+# profiler (bf16 ragged_matmul, ragged_swiglu and fused_moe's up and down
+# passes are the Hopper mainloop, named by their epilogues)
 STEP_GROUPS = {"fused_moe": ("FusedUpStore", "FusedCombine"),
-               "ragged_swiglu": ("ragged_kernel<__nv_bfloat16, 2",),
+               "ragged_swiglu": ("SwigluStore",),
                "ragged_matmul": ("RaggedStore",),
+               "segment_outer": ("weight_grad_wgmma",),
                "dispatch": ("scatter_rows", "gather_combine"),
-               "grouped (serving)": ("grouped_",),
-               "fp32 GEMMs (_segment_outer)": ("gemm_f32f32",),
-               "index_add_ (_segment_outer)": ("indexFunc",)}
+               "grouped (serving)": ("grouped_",)}
 
 
 def profile_step(trainer, state) -> None:
@@ -691,11 +823,12 @@ def report_training(trainer, wall: float, launches: dict, steps: int) -> dict:
     return report
 
 
-def fwd_bwd_peaks(trainer, state, schedules) -> None:
+def fwd_bwd_peaks(trainer, state) -> None:
     """The peak of one forward + backward (no optimizer) above what is
-    already allocated, at each (chunks, depth), beside MACT's modeled
-    activation bytes for the trainer's leg (Eq. 2; fused=False keeps the
-    dispatch buffer's 2h term)."""
+    already allocated, at MACT's (chunks, depth), at (2, 1) and at (1, 1),
+    beside MACT's modeled activation bytes for the trainer's leg (Eq. 2;
+    fused=False keeps the dispatch buffer's 2h term).  FCDA exists to lower
+    the peak: two sequential chunks above one chunk fails the run."""
     import torch
     from repro_torch.optim.adamw import param_list
     from repro_torch.training.step import loss_fn
@@ -704,6 +837,9 @@ def fwd_bwd_peaks(trainer, state, schedules) -> None:
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in trainer.data.batch_at(0).items()}
     leaves = param_list(state.params)
+    schedules = dict.fromkeys(((trainer.log[-1]["chunks"], trainer.log[-1]["pipeline"]),
+                               (2, 1), (1, 1)))
+    peaks = {}
     for chunks, depth in schedules:
         modeled = trainer.mact.memory_report(s_pp, chunks, depth)["activation_gb"] * 2**30
         torch.cuda.synchronize()
@@ -716,6 +852,7 @@ def fwd_bwd_peaks(trainer, state, schedules) -> None:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         grad_bytes = sum(g.numel() * g.element_size() for g in grads if g is not None)
+        peaks[chunks, depth] = peak
         del loss, grads
         print(f"forward + backward at (chunks {chunks}, depth {depth}), fused="
               f"{trainer.mact.fused}: peak {peak / 1e9:.3f} GB above the "
@@ -723,6 +860,10 @@ def fwd_bwd_peaks(trainer, state, schedules) -> None:
               f"{grad_bytes / 1e9:.3f} GB; the rest {(peak - grad_bytes) / 1e9:.3f} GB "
               f"against MACT's modeled activations {modeled / 1e9:.3f} GB "
               f"(s'' {s_pp:.0f})", flush=True)
+    if peaks[2, 1] > peaks[1, 1]:
+        raise SystemExit(f"two sequential chunks raise the forward + backward peak: "
+                         f"{peaks[2, 1] / 1e9:.3f} GB at (2, 1) against "
+                         f"{peaks[1, 1] / 1e9:.3f} GB at (1, 1)")
 
 
 def train_phase() -> dict:
@@ -733,12 +874,14 @@ def train_phase() -> dict:
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels.fused_moe import fused_moe
     from repro_torch.kernels.ragged_mlp import ragged_matmul
+    from repro_torch.kernels.weight_grad import segment_outer
     from repro_torch.launch import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe)
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe,
+                segment_outer)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -748,8 +891,7 @@ def train_phase() -> dict:
     wall = time.perf_counter() - t0
     report_training(trainer, wall, launches, 4)
     profile_step(trainer, state)
-    fwd_bwd_peaks(trainer, state, ((trainer.log[-1]["chunks"],
-                                    trainer.log[-1]["pipeline"]), (1, 1)))
+    fwd_bwd_peaks(trainer, state)
     del trainer, state
     torch.cuda.empty_cache()
     return launches
@@ -768,12 +910,14 @@ def train_ragged_phase() -> dict:
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels.fused_moe import fused_moe
     from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
+    from repro_torch.kernels.weight_grad import segment_outer
     from repro_torch.training.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters = (dc.scatter_rows, dc.gather_combine, ragged_swiglu, ragged_matmul)
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_swiglu, ragged_matmul,
+                segment_outer)
     for fn in (*counters, fused_moe):
         fn.launches = 0
     t0 = time.perf_counter()
@@ -792,11 +936,10 @@ def train_ragged_phase() -> dict:
                          f"ragged leg")
     profile_step(trainer, state)
 
-    mact_sched = (trainer.log[-1]["chunks"], trainer.log[-1]["pipeline"])
-    # MACT's schedule, then one chunk live at a time, then no chunking
-    fwd_bwd_peaks(trainer, state, (mact_sched, (mact_sched[0], 1), (1, 1)))
+    fwd_bwd_peaks(trainer, state)
     print(f"MACT on the ragged leg: s'max {report['s_prime_max']:.0f}, schedule "
-          f"(chunks {mact_sched[0]}, depth {mact_sched[1]})", flush=True)
+          f"(chunks {trainer.log[-1]['chunks']}, depth {trainer.log[-1]['pipeline']})",
+          flush=True)
     del trainer, state
     torch.cuda.empty_cache()
     return launches
@@ -894,6 +1037,10 @@ def check_phase() -> None:
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                Request, ServeConfig)
 
+    # fp32 on the card as on the CPU: no TF32 in matmuls or convolutions,
+    # whatever an earlier phase set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("mixtral-8x7b").reduced()
     cpu = transformer.init_params(cfg, device="cpu", seed=1)
     gpu = {"embed": cpu["embed"].cuda(), "head": cpu["head"].cuda(),

@@ -42,7 +42,7 @@ from repro_torch.core import dispatch as dsp
 from repro_torch.core.chunking import ChunkStages, chunked_pipeline
 from repro_torch.core.router import route
 from repro_torch.kernels.ops import (combine_rows, dispatch_rows, expert_ffn,
-                                     ragged_expert_ffn)
+                                     ragged_expert_ffn, shared_weight_grads)
 from repro_torch.kernels.ops import moe_ffn as fused_moe_leg
 
 #: default ragged-layout row-block size; per-run override via
@@ -85,6 +85,13 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     t_c = tokens // chunks
     router = params["router"]
     w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    grads = None
+    if ragged or fused:
+        # one gradient buffer per expert weight for all the layer's chunks:
+        # each chunk's backward adds into it (the scan transpose's single
+        # cotangent in the JAX package), so chunking never holds a second
+        # full-size weight gradient
+        w1, w3, w2, grads = shared_weight_grads(w1, w3, w2)
 
     def stage_dispatch(xc):
         """Route + single-sort plan + the dispatch exchange."""
@@ -122,11 +129,12 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
             if fused:
                 back = fused_moe_leg(rows, w1, w3, w2, plan.slots,
                                      plan.block_to_expert, plan.total_rows, None,
-                                     block_m=ragged_block)
+                                     block_m=ragged_block, grads=grads)
             else:
                 buf = dispatch_rows(rows, plan.slots, R, total_rows=plan.total_rows)
                 h = ragged_expert_ffn(buf, w1, w3, w2, plan.block_to_expert,
-                                      plan.total_rows, block_m=ragged_block)
+                                      plan.total_rows, block_m=ragged_block,
+                                      grads=grads)
                 back = combine_rows(h, plan.slots, None, plan.total_rows)
         else:
             if moe_cfg.capacity_mode == "dropless":

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("grouped_mlp", "dispatch", "ragged_mlp", "fused_moe", "flash_attention")
+SOURCES = ("grouped_mlp", "dispatch", "ragged_mlp", "fused_moe", "flash_attention",
+           "weight_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (ragged_wgmma.cuh's mainloop under bf16 ragged_matmul and fused_moe,
-// grouped_mlp.cu's bf16 grouped_matmul, flash_attention.cu's bf16 kernel).
+// (ragged_wgmma.cuh's mainloop under bf16 ragged_matmul, ragged_swiglu and
+// fused_moe, grouped_mlp.cu's bf16 grouped_matmul, flash_attention.cu's and
+// weight_grad.cu's bf16 kernels).
 //
 // Host: tensor maps (TMA descriptors) encoded per call, since the pointers
 // change from call to call, through cuTensorMapEncodeTiled fetched with
@@ -12,8 +13,9 @@
 // loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an mbarrier;
 // gathered 16-byte cp.async copies that arrive on an mbarrier; the
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile; wgmma fence,
-// commit and wait; the m64nNk16 bf16 -> fp32 products (A from shared memory
-// or from registers, B from shared memory, K-major or N-major); setmaxnreg.
+// commit and wait; the m64nNk16 bf16 -> fp32 products (A from shared memory,
+// K-major or M-major, or from registers; B from shared memory, K-major or
+// N-major); setmaxnreg.
 //
 // Layouts.  Every tile is loaded by TMA with 128-byte swizzle, so a tile
 // row holds 64 bf16 values and eight rows form a 1024-byte swizzle atom;
@@ -24,7 +26,9 @@
 //   N-major B (stored (K, N), read with the transpose bit): boxes of 64
 //     columns x BK rows of K, side by side; descriptor LBO = the byte
 //     distance between boxes (the next 64 columns), SBO = 1024 (the next 8
-//     K rows); the k16 step kk starts 16 * 128 * kk bytes in.
+//     K rows); the k16 step kk starts 16 * 128 * kk bytes in.  M-major A
+//     (stored (K, M), read with A's transpose bit) is laid out the same way;
+//     a 64-row product reads one box.
 // Accumulator layout of an m64nN product, thread t of the warpgroup (warp
 // w = t / 32, lane l): d[4j + 2h + c] is row 16w + l/4 + 8h, column 8j +
 // 2(l % 4) + c.  The same layout, as bf16 pairs, is the A fragment of a
@@ -232,8 +236,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // D (64 x 128, fp32) += A (64 x 16, shared) * B (16 x 128, shared), or D =
-// A * B when scale_d = 0; B read N-major (transposed) when TB = 1.
-template <int TB>
+// A * B when scale_d = 0; B read N-major (transposed) when TB = 1, A read
+// M-major (transposed, stored (K, M) in 64-column boxes as N-major B is)
+// when TA = 1.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
                                          int scale_d = 1) {
   asm volatile(
@@ -243,7 +249,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -253,12 +259,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // D (64 x 256, fp32) += A (64 x 16, shared) * B (16 x 256, shared), or D =
-// A * B when scale_d = 0; B read N-major (transposed) when TB = 1.
-template <int TB>
+// A * B when scale_d = 0; B read N-major (transposed) when TB = 1, A read
+// M-major when TA = 1.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t db,
                                          int scale_d = 1) {
   asm volatile(
@@ -272,7 +279,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -290,7 +297,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t 
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // D (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x

@@ -25,9 +25,15 @@
 //     wgmma, 128 x 256 tiles, or 64 x 256 when bm is not a multiple of 128)
 //     with an epilogue that stores bf16 pairs straight from the registers,
 //     rows past *total_rows (and whole dead tiles) as 0.
-//   ragged_matmul, fp32, and ragged_swiglu, both dtypes: the simple tiled
-//     loop of ragged_tile.cuh (WMMA bf16 / FMA fp32, no pipelining), one
-//     block per 64 x 64 tile; dead row blocks skip their products.
+//   ragged_swiglu, bf16: the same mainloop with two weights (128 rows x 128
+//     columns of f for each of w1 and w3, A by one 2-D TMA load, as
+//     fused_moe.cu's up pass without its gather); the epilogue takes
+//     silu(a) * b in fp32 from the fp32 sums and stores it as bf16 (the JAX
+//     kernel's epilogue, one cast), dead rows and tiles as 0.  When bm is
+//     not a multiple of 128 a tile keeps its first 64 or bm rows.
+//   fp32 ragged_matmul and ragged_swiglu: the simple tiled loop of
+//     ragged_tile.cuh (FMA, no pipelining), one block per 64 x 64 tile; dead
+//     row blocks skip their products.
 // PERF.md has each one's time against its bound.
 
 #include "ragged_tile.cuh"
@@ -62,6 +68,38 @@ int launch_tile(const void* x, const void* w, void* out, const void* b2e, const 
   if ((err = rw::map_weights(&b_map, w, E, K, N, TRANS, C::BN))) return err;
   const rw::Rows p{(const int*)b2e, (const int*)total_rows, nullptr, nullptr, R, K, N, bm, tm};
   return rw::launch<C>(a_map, b_map, b_map, p, RaggedStore{(__nv_bfloat16*)out, N}, stream);
+}
+
+// bf16 ragged_swiglu: silu(a) * b in fp32, one cast to bf16; rows past
+// *total_rows, and dead tiles, as 0
+struct SwigluStore {
+  __nv_bfloat16* out;
+  int N;
+  struct Row {
+    __nv_bfloat16* p;
+    bool keep;
+  };
+  __device__ Row row(int grow, bool keep) const { return {out + (size_t)grow * N, keep}; }
+  __device__ void put(const Row& r, int col, const float (&v)[2][2]) const {
+    *reinterpret_cast<__nv_bfloat162*>(r.p + col) =
+        r.keep ? __floats2bfloat162_rn(ragged::silu(v[0][0]) * v[1][0],
+                                       ragged::silu(v[0][1]) * v[1][1])
+               : __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+};
+
+// tm: the rows a tile keeps (128, 64 or bm < 64); the tile is 128 rows
+int launch_swiglu_bf16(const void* x, const void* w1, const void* w3, void* out, const void* b2e,
+                       const void* total_rows, int R, int K, int N, int E, int bm, int tm,
+                       cudaStream_t stream) {
+  using C = rw::Cfg<128, 2, false, false>;
+  CUtensorMap a_map, w1_map, w3_map;
+  int err = rw::map_rows(&a_map, x, R, K, C::TM);
+  if (err) return err;
+  if ((err = rw::map_weights(&w1_map, w1, E, K, N, false, C::BN))) return err;
+  if ((err = rw::map_weights(&w3_map, w3, E, K, N, false, C::BN))) return err;
+  const rw::Rows p{(const int*)b2e, (const int*)total_rows, nullptr, nullptr, R, K, N, bm, tm};
+  return rw::launch<C>(a_map, w1_map, w3_map, p, SwigluStore{(__nv_bfloat16*)out, N}, stream);
 }
 
 // tm: the rows a tile keeps, 128 when bm is a multiple of 128 (128-row
@@ -114,9 +152,9 @@ int launch_f32(const void* x, const void* w, void* out, const void* b2e, const v
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_swiglu(const void* x, const void* w1, const void* w3, void* out, const void* b2e,
-                  const void* total_rows, int R, int K, int N, int bm, int tm, void* stream) {
+int launch_swiglu_f32(const void* x, const void* w1, const void* w3, void* out, const void* b2e,
+                      const void* total_rows, int R, int K, int N, int bm, int tm, void* stream) {
+  using T = float;
   const dim3 grid((N + BN - 1) / BN, R / tm);
   ragged_kernel<T, 2, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w1, (const T*)w3, (T*)out, (const int*)b2e,
@@ -143,15 +181,16 @@ extern "C" int ragged_matmul_f32(const void* x, const void* w, void* out, const 
   return launch_f32(x, w, out, b2e, total_rows, R, K, N, bm, tm, trans, stream);
 }
 
-// w1, w3: (E, K, N).
+// w1, w3: (E, K, N); tm as above (bf16: kernels/ragged_mlp.py::row_tile, wide).
 extern "C" int ragged_swiglu_bf16(const void* x, const void* w1, const void* w3, void* out,
                                   const void* b2e, const void* total_rows, int R, int K, int N,
-                                  int bm, int tm, void* stream) {
-  return launch_swiglu<__nv_bfloat16>(x, w1, w3, out, b2e, total_rows, R, K, N, bm, tm, stream);
+                                  int bm, int tm, int E, void* stream) {
+  return launch_swiglu_bf16(x, w1, w3, out, b2e, total_rows, R, K, N, E, bm, tm,
+                            (cudaStream_t)stream);
 }
 
 extern "C" int ragged_swiglu_f32(const void* x, const void* w1, const void* w3, void* out,
                                  const void* b2e, const void* total_rows, int R, int K, int N,
-                                 int bm, int tm, void* stream) {
-  return launch_swiglu<float>(x, w1, w3, out, b2e, total_rows, R, K, N, bm, tm, stream);
+                                 int bm, int tm, int E, void* stream) {
+  return launch_swiglu_f32(x, w1, w3, out, b2e, total_rows, R, K, N, bm, tm, stream);
 }

@@ -1,6 +1,7 @@
 // The tiled loop of the port's first expert-FFN kernels: the fp32 forms of
 // grouped_mlp.cu, ragged_mlp.cu and fused_moe.cu, and bf16 grouped_swiglu
-// and ragged_swiglu (the other bf16 kernels run hopper.cuh's designs).  The
+// (the other bf16 kernels run hopper.cuh's designs; weight_grad.cu's fp32
+// loop borrows load_tile).  The
 // caller picks the expert: per grid z index in the capacity layout, per row
 // block from block_to_expert in the ragged one.
 //

@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) mainloop of the port's bf16 ragged expert products,
-// shared by ragged_mlp.cu (ragged_matmul) and fused_moe.cu (the fused leg's
-// up and down passes); each caller gives it its epilogue.
+// shared by ragged_mlp.cu (ragged_matmul and ragged_swiglu) and fused_moe.cu
+// (the fused leg's up and down passes); each caller gives it its epilogue.
+// weight_grad.cu reuses its constants and its ring's structure.
 //
 // The ragged layout: R rows in bm-row blocks, block i of expert b2e[i];
 // rows at or past *total_rows (read on the device, never on the host) are

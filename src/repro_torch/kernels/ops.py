@@ -19,6 +19,12 @@
   dispatch buffer with ``scatter_rows``, runs the same FFN interior as
   ``ragged_expert_ffn``'s backward (``_ffn_backward``) and returns the token
   gradient through ``gather_combine``.
+* ``shared_weight_grads``: one MoE layer's gradient buffers, one per expert
+  weight, shared by the layer's FCDA chunks.  Each chunk's backward adds its
+  weight gradients into them with the ``segment_outer`` kernel, so a layer's
+  backward holds one full-size gradient per expert weight however many
+  chunks it has (the JAX package's scan transpose carries the same single
+  cotangent buffer).
 
 On CPU tensors every kernel call takes its plain version, so the same
 autograd Functions run, and are tested, on the CPU.
@@ -26,7 +32,7 @@ autograd Functions run, and are tested, on the CPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -35,6 +41,7 @@ from repro_torch.kernels.dispatch_cuda import gather_combine, scatter_rows
 from repro_torch.kernels.fused_moe import fused_moe
 from repro_torch.kernels.grouped_mlp import grouped_matmul, grouped_swiglu
 from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
+from repro_torch.kernels.weight_grad import segment_outer
 
 
 def expert_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -147,98 +154,173 @@ def combine_rows(buf: torch.Tensor, slots: torch.Tensor,
 # the ragged expert FFN and the fused expert leg
 # ---------------------------------------------------------------------------
 
-def _segment_outer(a: torch.Tensor, b: torch.Tensor, b2e: torch.Tensor,
-                   num_experts: int) -> torch.Tensor:
-    """dw[e] = sum over the row blocks of expert e of a_blockᵀ @ b_block, in
-    fp32.  The blocks are visited in order, each product added into its
-    expert's slot with ``index_add_`` on a one-element device index: no
-    host sync, and no (nb, K, N) tensor (9.4 GB at Mixtral's widths)."""
-    nb = b2e.shape[0]
-    R = a.shape[0]
-    ab = a.reshape(nb, R // nb, a.shape[1])
-    bb = b.reshape(nb, R // nb, b.shape[1])
-    b2e = b2e.long()
-    acc = torch.zeros((num_experts, a.shape[1], b.shape[1]), dtype=torch.float32,
-                      device=a.device)
-    for i in range(nb):
-        contrib = ab[i].float().T @ bb[i].float()
-        acc.index_add_(0, b2e[i:i + 1], contrib[None])
-    return acc
+class WeightGrads:
+    """The gradient buffers of one MoE layer's expert weights (w1, w3, w2),
+    one each.  They are made when the first chunk's backward starts, so
+    every chunk's backward runs beside the same buffers whatever the chunk
+    count (as the scan transpose's carry in the JAX package), and filled in
+    the order autograd runs the chunks' backwards: the first writes its sum
+    (``segment_outer``'s write mode), each later one adds into it in the
+    weight's type, the JAX package's rounding points for a cotangent summed
+    over ``lax.map``'s chunks."""
+
+    def __init__(self):
+        self.dw = None
+        self.filled = [False, False, False]
+
+    def open(self, *weights: torch.Tensor) -> None:
+        """Make the buffers, once, shaped and typed as the weights."""
+        if self.dw is None:
+            self.dw = [torch.empty_like(w) for w in weights]
+
+    def add(self, i: int, a: torch.Tensor, b: torch.Tensor, b2e: torch.Tensor, rows,
+            block_m: int) -> None:
+        """Weight ``i``'s gradient from this chunk: aᵀ @ b per expert."""
+        segment_outer(a, b, b2e, rows, block_m, self.dw[i],
+                      accumulate=self.filled[i])
+        self.filled[i] = True
+
+    def take(self) -> list:
+        """The buffers, handed over once: a second backward through a kept
+        graph starts new ones instead of adding into gradients already
+        handed to autograd."""
+        dw, self.dw, self.filled = self.dw, None, [False, False, False]
+        return dw
 
 
-class _FFNGrads(NamedTuple):
-    dbuf: torch.Tensor      # (R, d) gradient of the FFN's input rows
-    dw1: torch.Tensor
-    dw3: torch.Tensor
-    dw2: torch.Tensor
-    a: torch.Tensor         # (R, f) the recomputed SwiGLU output, x's type
+class _SharedGrads(torch.autograd.Function):
+    """The expert weights pass through once per layer, before its chunks;
+    the chunks' Functions add their weight gradients into ``grads`` and
+    return none, so this backward, which autograd runs only after every
+    chunk's, returns the buffers as the weights' gradients."""
+
+    @staticmethod
+    def forward(ctx, grads, w1, w3, w2):
+        ctx.grads = grads
+        # the chunks return no weight gradient: no zeros in their place
+        ctx.set_materialize_grads(False)
+        return w1.view_as(w1), w3.view_as(w3), w2.view_as(w2)
+
+    @staticmethod
+    def backward(ctx, *unused):
+        return (None, *ctx.grads.take())
+
+
+def shared_weight_grads(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor):
+    """(w1, w3, w2, grads): the expert weights as the layer's chunks should
+    use them, and the ``WeightGrads`` to pass to each chunk's ``moe_ffn`` or
+    ``ragged_expert_ffn``.  Outside autograd, or for weights that want no
+    gradient, the weights themselves and None."""
+    if not (torch.is_grad_enabled() and any(w.requires_grad for w in (w1, w3, w2))):
+        return w1, w3, w2, None
+    grads = WeightGrads()
+    return (*_SharedGrads.apply(grads, w1, w3, w2), grads)
+
+
+#: the FFN backward's elementwise part runs in row slices of this many
+#: elements (32 MB of fp32 per operand), so its fp32 temporaries stay at a
+#: few slices instead of several (R, f) tensors
+_SLICE_ELEMS = 1 << 23
+
+
+def _swiglu_backward_(h1: torch.Tensor, h3: torch.Tensor, da: torch.Tensor):
+    """SwiGLU's forward recompute and backward from the up-projections h1,
+    h3 and dL/da, in fp32 and in place, slice by slice: h1 becomes a =
+    silu(h1) * h3, h3 becomes dh1 and da becomes dh3, each cast to the
+    rows' type.  The same fp32 operations in the same order as the JAX
+    package's VJP, so the same bits; returns (a, dh1, dh3)."""
+    step = max(1, _SLICE_ELEMS // max(1, h1.shape[1]))
+    for r0 in range(0, h1.shape[0], step):
+        sl = slice(r0, r0 + step)
+        # copies, also in fp32: the slices are overwritten below
+        x1, x3, d = (t[sl].to(torch.float32, copy=True) for t in (h1, h3, da))
+        s = torch.sigmoid(x1)
+        silu = x1.mul_(s)
+        h1[sl] = silu * x3                               # a
+        dsilu = torch.rsub(s, 1).mul_(silu).add_(s)      # s + silu (1 - s)
+        h3[sl] = (d * x3).mul_(dsilu)                    # dh1 = da h3 silu'
+        da[sl] = d.mul_(silu)                            # dh3 = da silu
+        del x1, x3, d, s, silu, dsilu
+    return h1, h3, da
 
 
 def _ffn_backward(buf: torch.Tensor, g_buf: torch.Tensor, w1: torch.Tensor,
                   w3: torch.Tensor, w2: torch.Tensor, b2e: torch.Tensor, rows,
-                  block_m: int) -> _FFNGrads:
+                  block_m: int, grads: WeightGrads):
     """The backward of y = silu(buf @ w1[e]) * (buf @ w3[e]) @ w2[e] over the
     ragged layout, given dL/dy = ``g_buf``: both up-projections recomputed
     with ``ragged_matmul`` (no (R, f) tensor was saved), the elementwise
-    gradient in fp32 cast to the rows' type, the row gradient through the
-    transposed weights read in place, the weight gradients with
-    ``_segment_outer``.  The JAX package's ragged and fused VJPs share this
-    arithmetic, rounding point for rounding point."""
-    E = w1.shape[0]
+    gradient in fp32 cast to the rows' type (``_swiglu_backward_``), the row
+    gradient through the transposed weights read in place, the weight
+    gradients added into ``grads`` with ``segment_outer``.  The JAX
+    package's ragged and fused VJPs share this arithmetic, rounding point
+    for rounding point.  Returns (dbuf (R, d), a (R, f) the recomputed
+    SwiGLU output in the rows' type)."""
     dt = buf.dtype
 
     def mm(a, w, transpose=False):
         return ragged_matmul(a, w, b2e, rows, block_m, transpose_w=transpose)
 
-    h1 = mm(buf, w1).float()
-    h3 = mm(buf, w3).float()
-    s = torch.sigmoid(h1)
-    silu_h1 = h1 * s
-    a = (silu_h1 * h3).to(dt)
-    da = mm(g_buf, w2, True).float()
-    dh3 = (da * silu_h1).to(dt)
-    dh1 = (da * h3 * (s + silu_h1 * (1 - s))).to(dt)
-    del h1, h3, s, silu_h1, da
+    grads.open(w1, w3, w2)
+    a, dh1, dh3 = _swiglu_backward_(mm(buf, w1), mm(buf, w3), mm(g_buf, w2, True))
     dbuf = (mm(dh1, w1, True) + mm(dh3, w3, True)).to(dt)
-    dw1 = _segment_outer(buf, dh1, b2e, E).to(w1.dtype)
-    dw3 = _segment_outer(buf, dh3, b2e, E).to(w3.dtype)
-    dw2 = _segment_outer(a, g_buf, b2e, E).to(w2.dtype)
-    return _FFNGrads(dbuf, dw1, dw3, dw2, a)
+    grads.add(0, buf, dh1, b2e, rows, block_m)
+    grads.add(1, buf, dh3, b2e, rows, block_m)
+    grads.add(2, a, g_buf, b2e, rows, block_m)
+    return dbuf, a
+
+
+def _chunk_grads(ctx):
+    """The chunk's weight-gradient target: the layer's shared buffers, or,
+    for a call outside an EP layer, buffers of its own that it returns."""
+    return ctx.grads if ctx.grads is not None else WeightGrads()
+
+
+def _returned(ctx, grads: WeightGrads) -> list:
+    """The weight gradients a chunk Function returns: none when they went
+    into the layer's shared buffers (returning them too would count them
+    twice), else its own."""
+    return [None, None, None] if grads is ctx.grads else grads.take()
 
 
 class _RaggedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, w3, w2, b2e, rows, block_m):
+    def forward(ctx, x, w1, w3, w2, b2e, rows, block_m, grads):
         ctx.save_for_backward(x, w1, w3, w2, b2e, rows)
-        ctx.block_m = block_m
+        ctx.block_m, ctx.grads = block_m, grads
         h = ragged_swiglu(x, w1, w3, b2e, rows, block_m)
         return ragged_matmul(h, w2, b2e, rows, block_m)
 
     @staticmethod
     def backward(ctx, gy):
         x, w1, w3, w2, b2e, rows = ctx.saved_tensors
-        g = _ffn_backward(x, gy.contiguous(), w1, w3, w2, b2e, rows, ctx.block_m)
-        return g.dbuf, g.dw1, g.dw3, g.dw2, None, None, None
+        grads = _chunk_grads(ctx)
+        dx, _ = _ffn_backward(x, gy.contiguous(), w1, w3, w2, b2e, rows, ctx.block_m,
+                              grads)
+        return (dx, *_returned(ctx, grads), None, None, None, None)
 
 
 def ragged_expert_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                       w2: torch.Tensor, block_to_expert: torch.Tensor, total_rows,
-                      *, block_m: int = 128) -> torch.Tensor:
+                      *, block_m: int = 128,
+                      grads: Optional[WeightGrads] = None) -> torch.Tensor:
     """The SwiGLU FFN over the ragged layout: x (R, d) expert-grouped,
     bm-aligned rows -> (R, d), rows at or past ``total_rows`` 0.  Forward is
     one ``ragged_swiglu`` and one ``ragged_matmul`` launch; the backward
-    recomputes the up-projections (``_ffn_backward``)."""
+    recomputes the up-projections (``_ffn_backward``).  ``grads``: the
+    layer's shared weight-gradient buffers (``shared_weight_grads``), which
+    the backward adds into instead of returning the weights' gradients."""
     rows = torch.as_tensor(total_rows, device=x.device).to(torch.int32)
     return _RaggedFFN.apply(x, w1, w3, w2, block_to_expert.to(torch.int32), rows,
-                            block_m)
+                            block_m, grads)
 
 
 class _FusedMoE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w3, w2, src, wslot, slots, b2e, rows, has_weights,
-                block_m):
+                block_m, grads):
         ctx.save_for_backward(x, w1, w3, w2, src, wslot, slots, b2e, rows)
-        ctx.has_weights, ctx.block_m = has_weights, block_m
+        ctx.has_weights, ctx.block_m, ctx.grads = has_weights, block_m, grads
         return fused_moe(x, w1, w3, w2, src, wslot, rows, b2e)
 
     @staticmethod
@@ -249,29 +331,32 @@ class _FusedMoE(torch.autograd.Function):
         g_buf = scatter_rows(gy, src, rows, wslot)
         # dispatch recompute: the buffer exists only inside this backward
         buf = scatter_rows(x, src, rows)
-        g = _ffn_backward(buf, g_buf, w1, w3, w2, b2e, rows, ctx.block_m)
+        grads = _chunk_grads(ctx)
+        dbuf, a = _ffn_backward(buf, g_buf, w1, w3, w2, b2e, rows, ctx.block_m, grads)
         # dispatch-bwd = combine kernel: dx[t] = sum_k dbuf[slot[t, k]]
-        dx = gather_combine(g.dbuf, slots)
+        dx = gather_combine(dbuf, slots)
         d_wslot = None
         if ctx.has_weights:
             # d wslot[r] = <gy[token(r)], y[r]>: the (T, K) segment dot of
             # the combine's backward, then permuted to rows
-            y_buf = ragged_matmul(g.a, w2, b2e, rows, ctx.block_m)
+            y_buf = ragged_matmul(a, w2, b2e, rows, ctx.block_m)
             dwtk = _weight_grad(gy, y_buf, slots, wslot.dtype)
             pos = invert_slots(slots, wslot.shape[0])
             d_wslot = _slot_weights(dwtk, pos)
-        return (dx, g.dw1, g.dw3, g.dw2, None, d_wslot, None, None, None, None,
-                None)
+        return (dx, *_returned(ctx, grads), None, d_wslot, None, None, None, None,
+                None, None)
 
 
 def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
             slots: torch.Tensor, block_to_expert: torch.Tensor, total_rows,
             weights: Optional[torch.Tensor] = None, *,
-            block_m: int = 128) -> torch.Tensor:
+            block_m: int = 128, grads: Optional[WeightGrads] = None) -> torch.Tensor:
     """The per-chunk expert leg in one ``fused_moe`` call: x (T, d) + slot
     map (T, K) -> (T, d) weighted expert-FFN combine over the ragged layout
     of ``block_to_expert`` / ``total_rows`` (R = len(block_to_expert) *
-    block_m rows)."""
+    block_m rows).  ``grads``: the layer's shared weight-gradient buffers
+    (``shared_weight_grads``), which the backward adds into instead of
+    returning the weights' gradients."""
     R = block_to_expert.shape[0] * block_m
     T, K = slots.shape
     # the row-side maps are made outside the Function: wslot is a
@@ -285,4 +370,4 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tenso
     return _FusedMoE.apply(x, w1, w3, w2, src.to(torch.int32), wslot,
                            slots.to(torch.int32),
                            block_to_expert.to(torch.int32), rows,
-                           weights is not None, block_m)
+                           weights is not None, block_m, grads)

@@ -5,12 +5,12 @@ kernels' wrappers.
 one expert per ``block_m``-row block (``block_to_expert``), and writes 0 at
 and past ``total_rows``; ``ragged_swiglu`` computes silu(x @ w1[e]) *
 (x @ w3[e]) over the same layout.  On a CUDA tensor each launches its
-kernel of ``csrc/ragged_mlp.cu``, picked by dtype alone: bf16
-``ragged_matmul`` runs the Hopper mainloop of ``csrc/ragged_wgmma.cuh``
-(TMA, an mbarrier ring, wgmma; 128- or 64-row tiles), fp32 ``ragged_matmul`` and ``ragged_swiglu`` in both
-dtypes the simple tile loop of ``csrc/ragged_tile.cuh``.  On a CPU tensor
-each computes the plain version of ``kernels/ref.py``.  Each counts its
-kernel launches in ``.launches``.
+kernel of ``csrc/ragged_mlp.cu``, picked by dtype alone: in bf16 both run
+the Hopper mainloop of ``csrc/ragged_wgmma.cuh`` (TMA, an mbarrier ring,
+wgmma; ``ragged_matmul`` on 128- or 64-row tiles, ``ragged_swiglu`` on
+128-row tiles of both weights), in fp32 the simple tile loop of
+``csrc/ragged_tile.cuh``.  On a CPU tensor each computes the plain version
+of ``kernels/ref.py``.  Each counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -25,9 +25,9 @@ _TILE_M = 64          # the tile loop's row tile, and the Hopper kernel's small 
 def row_tile(block_m: int, wide: bool = False) -> int:
     """The rows a kernel's tile keeps: 64, or the whole row block when it is
     smaller, so a tile's rows never straddle two experts.  ``wide`` (the
-    bf16 kernels on ``csrc/ragged_wgmma.cuh``: ``ragged_matmul`` and
-    ``fused_moe``): 128 when ``block_m`` is a multiple of 128, a 128-row
-    tile holding one row block."""
+    bf16 kernels on ``csrc/ragged_wgmma.cuh``: ``ragged_matmul``,
+    ``ragged_swiglu`` and ``fused_moe``): 128 when ``block_m`` is a multiple
+    of 128, a 128-row tile holding one row block."""
     if block_m % _TILE_M == 0:
         return 2 * _TILE_M if wide and block_m % (2 * _TILE_M) == 0 else _TILE_M
     if _TILE_M % block_m == 0:
@@ -51,7 +51,7 @@ def _launch(op: str, x: torch.Tensor, weights: tuple, block_to_expert, total_row
     R, K = x.shape
     if K % 8 or N % 8:
         raise ValueError(f"{op}: K={K} and N={N} must be multiples of 8")
-    tm = row_tile(block_m, wide=op == "ragged_matmul" and x.dtype == torch.bfloat16)
+    tm = row_tile(block_m, wide=x.dtype == torch.bfloat16)
     b2e = _cuda.index32(block_to_expert, x.device)
     _cuda.no_autograd(op, (x, *weights),
                       "train through kernels/ops.py (moe_ffn or ragged_expert_ffn)")
@@ -98,7 +98,7 @@ def ragged_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ragged_swiglu_ref(x, w1, w3, block_to_expert, total_rows)
     out = _launch("ragged_swiglu", x, (w1, w3), block_to_expert, total_rows, block_m,
-                  w1.shape[2])
+                  w1.shape[2], (w1.shape[0],))
     ragged_swiglu.launches += 1
     return out
 

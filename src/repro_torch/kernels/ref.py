@@ -92,6 +92,37 @@ def ragged_expert_ffn_ref(x: torch.Tensor, w1, w3, w2, block_to_expert,
     return ragged_matmul_ref(h, w2, block_to_expert, total_rows)
 
 
+def segment_outer_ref(a: torch.Tensor, b: torch.Tensor, block_to_expert: torch.Tensor,
+                      total_rows, out: torch.Tensor, accumulate: bool) -> torch.Tensor:
+    """The expert weights' gradient over the ragged layout, into ``out``:
+    a (R, K), b (R, N) -> out (E, K, N), out[e] the sum over the row blocks
+    of expert e that start below ``total_rows`` of a_blockᵀ @ b_block, each
+    block's product in fp32 added into its expert's fp32 sum in block order
+    (the JAX package's ``_segment_outer`` scan).  ``accumulate``: out[e] =
+    w(float(out[e]) + float(w(sum))), w() the cast to out's type, the JAX
+    package's rounding points for a weight's cotangent summed over FCDA
+    chunks; otherwise out[e] = w(sum).  Returns ``out``."""
+    E = out.shape[0]
+    nb = block_to_expert.shape[0]
+    R = a.shape[0]
+    bm = R // nb
+    ab = a.reshape(nb, bm, a.shape[1])
+    bb = b.reshape(nb, bm, b.shape[1])
+    live = torch.arange(nb, device=a.device) * bm < torch.as_tensor(total_rows,
+                                                                   device=a.device)
+    # dead blocks add into a slot past the last expert, which is dropped: no
+    # host sync
+    eid = torch.where(live, block_to_expert.long(), E)
+    acc = torch.zeros((E + 1, a.shape[1], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for i in range(nb):
+        acc.index_add_(0, eid[i:i + 1], (ab[i].float().T @ bb[i].float())[None])
+    total = acc[:E].to(out.dtype)
+    if accumulate:
+        total = (out.float() + total.float()).to(out.dtype)
+    return out.copy_(total)
+
+
 # ---------------------------------------------------------------------------
 # dispatch / combine and the fused leg
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_moe import fused_moe
 from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
+from repro_torch.kernels.weight_grad import segment_outer
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (E, M, K, N): M edges below, at and past the 64-row tile; N and K edges
@@ -398,6 +399,194 @@ def test_ragged_expert_ffn_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+# (row blocks, live blocks, E, K, N, bm): 8-, 16-, 64- and 128-row blocks;
+# N off the 128-column and 256-column tiles, K off the 64- and 128-row tiles,
+# dead row blocks past the live ones
+SWIGLU_BF16_CASES = [(12, 9, 4, 72, 136, 8), (7, 5, 4, 136, 200, 64),
+                     (6, 4, 4, 136, 600, 128), (3, 1, 2, 4096, 256, 128),
+                     (5, 5, 3, 64, 328, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,live,E,K,N,bm", SWIGLU_BF16_CASES)
+def test_ragged_swiglu_bf16_kernel_matches_plain(cuda, nb, live, E, K, N, bm):
+    """The bf16 Hopper route (the shared mainloop with two weights) against
+    the plain version, with R a partial 128-row tile at bm 64 and dead rows
+    exactly 0."""
+    x, w1, b2e, total = (t.to(cuda) for t in _blocked_case(nb, live, E, K, N, bm, False,
+                                                           seed=nb + K + N))
+    g = torch.Generator(device="cpu").manual_seed(N)
+    w3 = (torch.randn(w1.shape, generator=g) * K ** -0.5).to(cuda)
+    x, w1, w3 = x.bfloat16(), w1.bfloat16(), w3.bfloat16()
+    before = ragged_swiglu.launches
+    got = ragged_swiglu(x, w1, w3, b2e, total, bm)
+    torch.cuda.synchronize()
+    assert ragged_swiglu.launches == before + 1
+    _assert_close(got, ref.ragged_swiglu_ref(x, w1, w3, b2e, total), torch.bfloat16)
+    assert (got[int(total):] == 0).all()
+
+
+@pytest.mark.cuda
+def test_ragged_swiglu_bf16_is_deterministic_at_large_k(cuda):
+    """8 relaunches equal the first bit for bit (a stage released before
+    its products are done shows as rare mismatches)."""
+    x, w1, b2e, total = (t.to(cuda) for t in _blocked_case(12, 11, 4, 4096, 512, 128,
+                                                           False, seed=11))
+    w3 = torch.flip(w1, dims=(2,)).contiguous()
+    x, w1, w3 = x.bfloat16(), w1.bfloat16(), w3.bfloat16()
+    first = ragged_swiglu(x, w1, w3, b2e, total, 128)
+    for _ in range(8):
+        torch.testing.assert_close(ragged_swiglu(x, w1, w3, b2e, total, 128), first,
+                                   rtol=0, atol=0)
+    _assert_close(first, ref.ragged_swiglu_ref(x, w1, w3, b2e, total), torch.bfloat16)
+
+
+def _wgrad_case(nb, live, E, K, N, bm, seed, exact=False, empty=(), device="cpu"):
+    """a (nb * bm, K), b (nb * bm, N) in row blocks of ascending experts
+    (none of ``empty``), the first ``live`` blocks live and the rest holding
+    nonzero rows the kernel must skip.  exact: small integers, so every fp32
+    sum is exact."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    experts = torch.tensor([e for e in range(E) if e not in empty])
+    b2e = torch.sort(experts[torch.randint(0, len(experts), (nb,), generator=g)]).values
+    if exact:
+        a, b = (_exact((nb * bm, n), g) for n in (K, N))
+    else:
+        a, b = (torch.randn((nb * bm, n), generator=g) for n in (K, N))
+    old = torch.randn((E, K, N), generator=g)
+    total = torch.tensor(live * bm, dtype=torch.int32)
+    return [t.to(device) for t in (a, b, b2e.to(torch.int32), total, old)]
+
+
+# (row blocks, live blocks, E, K, N, bm, experts with no rows): first one
+# output tile of one expert (the M-major A operand alone; K 64 takes 64-row
+# output tiles, K > 64 128-row ones), then K and N off their tiles, dead
+# blocks, 8- and 16-row blocks (8-row groups, a half k16 step padded), and
+# experts with no rows
+WGRAD_CASES = [(1, 1, 1, 64, 256, 64, ()), (1, 1, 1, 128, 256, 64, ()),
+               (6, 4, 4, 136, 600, 128, ()), (7, 5, 4, 72, 200, 64, ()),
+               (13, 9, 4, 64, 136, 8, ()), (10, 8, 4, 200, 264, 16, (2,)),
+               (5, 5, 3, 256, 512, 128, (1,)), (9, 7, 4, 64, 264, 64, (0, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("nb,live,E,K,N,bm,empty", WGRAD_CASES)
+def test_segment_outer_bf16_is_exact_under_exact_arithmetic(cuda, nb, live, E, K, N, bm,
+                                                            empty, accumulate):
+    """Integer rows: every fp32 sum is exact, so the kernel's write and add
+    equal the plain version bit for bit, and an expert with no rows gets 0
+    (write) or keeps its old values (add)."""
+    a, b, b2e, total, old = _wgrad_case(nb, live, E, K, N, bm, seed=nb * K + N, exact=True,
+                                        empty=empty, device=cuda)
+    a, b, old = a.bfloat16(), b.bfloat16(), old.bfloat16()
+    before = segment_outer.launches
+    got = segment_outer(a, b, b2e, total, bm, old.clone(), accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert segment_outer.launches == before + 1
+    want = ref.segment_outer_ref(a, b, b2e, total, old.clone(), accumulate)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for e in empty:
+        assert torch.equal(got[e], old[e] if accumulate else torch.zeros_like(old[e]))
+
+
+def _assert_wgrad_close(got, want, a, b, b2e, total, accumulate):
+    """The weight gradient against its plain version when both sum the same
+    products in fp32 in other orders.  fp32: to 1e-5 of the largest
+    magnitude (a sum of n Gaussian products drifts by ~sqrt(n) eps of its
+    terms, however small the sum).  bf16: the file's one-ulp tolerance,
+    1e-2 absolute and relative; adding into the buffer rounds the sum to
+    bf16 before the add, so when adding the sum's own ulp (1e-2 of |sum|)
+    comes on top, which shows where the add cancels."""
+    if got.dtype == torch.float32:
+        tol = 1e-5 * want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+        return
+    tol = TOL[torch.bfloat16]
+    bound = tol + tol * want.float().abs()
+    if accumulate:
+        s = ref.segment_outer_ref(a, b, b2e, total, torch.empty_like(want), False)
+        bound += tol * s.float().abs()
+    err = (got.float() - want.float()).abs()
+    assert (err <= bound).all(), f"{int((err > bound).sum())} elements past the tolerance"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("nb,live,E,K,N,bm,empty", WGRAD_CASES[2:])
+def test_segment_outer_kernel_matches_plain(cuda, nb, live, E, K, N, bm, empty,
+                                            accumulate, dtype):
+    """Gaussian rows: the kernel against the plain version in both dtypes
+    (fp32: the FMA loop), write and add (``_assert_wgrad_close``)."""
+    a, b, b2e, total, old = _wgrad_case(nb, live, E, K, N, bm, seed=nb + K, empty=empty,
+                                        device=cuda)
+    a, b, old = a.to(dtype), b.to(dtype), old.to(dtype)
+    got = segment_outer(a, b, b2e, total, bm, old.clone(), accumulate=accumulate)
+    want = ref.segment_outer_ref(a, b, b2e, total, old.clone(), accumulate)
+    _assert_wgrad_close(got, want, a, b, b2e, total, accumulate)
+
+
+@pytest.mark.cuda
+def test_segment_outer_bf16_is_deterministic(cuda):
+    """Many rows per expert (a long ring of stages): 8 relaunches equal the
+    first bit for bit, in both modes."""
+    a, b, b2e, total, old = _wgrad_case(24, 22, 4, 512, 1024, 128, seed=3, device=cuda)
+    a, b, old = a.bfloat16(), b.bfloat16(), old.bfloat16()
+    for accumulate in (False, True):
+        first = segment_outer(a, b, b2e, total, 128, old.clone(), accumulate=accumulate)
+        for _ in range(8):
+            torch.testing.assert_close(
+                segment_outer(a, b, b2e, total, 128, old.clone(), accumulate=accumulate),
+                first, rtol=0, atol=0)
+        _assert_wgrad_close(first, ref.segment_outer_ref(a, b, b2e, total, old.clone(),
+                                                         accumulate), a, b, b2e, total,
+                            accumulate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["fused", "ragged"])
+def test_chunking_does_not_raise_the_ep_layers_backward_peak(cuda, leg):
+    """The EP layer's forward + backward peak at (chunks 2, depth 1) is not
+    above (1, 1)'s, as in the JAX package, at a width where one set of
+    expert-weight gradients (3 x 33.6 MB of bf16) outweighs a chunk's
+    activations: each chunk's backward adds into one buffer per weight."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import moe
+
+    E, d, f, T = 8, 2048, 1024, 256
+    cfg = MoEConfig(num_experts=E, top_k=2, d_ff_expert=f)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    params = {"router": {"w": torch.randn((d, E), generator=g) * d ** -0.5,
+                         "bias": torch.zeros(E)},
+              "w1": torch.randn((E, d, f), generator=g) * d ** -0.5,
+              "w3": torch.randn((E, d, f), generator=g) * d ** -0.5,
+              "w2": torch.randn((E, f, d), generator=g) * f ** -0.5}
+    params = {k: ({n: t.to(cuda).requires_grad_() for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(cuda, torch.bfloat16).requires_grad_())
+              for k, v in params.items()}
+    x = torch.randn((1, T, d), generator=g).to(cuda, torch.bfloat16)
+    leaves = [params["w1"], params["w3"], params["w2"], params["router"]["w"]]
+    peaks = {}
+    for chunks in (1, 2, 1, 2):
+        ctx = moe.DistContext(device=cuda, moe_strategy="ep_shardmap", moe_chunks=chunks,
+                              moe_fused=leg == "fused", moe_ragged=leg == "ragged",
+                              ragged_block=64)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, st = moe.moe_ffn(params, x, cfg, ctx)
+        grads = torch.autograd.grad((y.float() ** 2).sum() + st["aux_loss"], leaves)
+        torch.cuda.synchronize()
+        peaks[chunks] = torch.cuda.max_memory_allocated() - base
+        assert all(torch.isfinite(t.float()).all() for t in grads)
+        del y, st, grads
+    print(f"{leg} leg: forward + backward peak {peaks[1] / 1e6:.1f} MB at (1, 1), "
+          f"{peaks[2] / 1e6:.1f} MB at (2, 1)")
+    assert peaks[2] <= peaks[1], (f"{leg} leg: forward + backward peak {peaks[2] / 1e6:.1f} "
+                                  f"MB at (2, 1) above {peaks[1] / 1e6:.1f} MB at (1, 1)")
+
+
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (BH, S, Skv, hd, causal, window): tile edges (64 and 128 rows) met and
 # missed, a window that does not divide the tile, Skv != S both ways, hd
@@ -514,6 +703,17 @@ def test_row_tile_never_straddles_two_row_blocks(bm, wide, rows):
     from repro_torch.kernels.ragged_mlp import row_tile
     assert row_tile(bm, wide=wide) == rows
     assert bm % rows == 0
+
+
+def test_segment_outer_takes_the_plain_version_on_the_cpu():
+    a, b, b2e, total, old = _wgrad_case(6, 4, 3, 16, 24, 8, seed=1)
+    before = segment_outer.launches
+    for accumulate in (False, True):
+        torch.testing.assert_close(
+            segment_outer(a, b, b2e, total, 8, old.clone(), accumulate=accumulate),
+            ref.segment_outer_ref(a, b, b2e, total, old.clone(), accumulate),
+            rtol=0, atol=0)
+    assert segment_outer.launches == before
 
 
 def test_ragged_swiglu_and_flash_attention_take_the_plain_version_on_the_cpu():
