@@ -19,9 +19,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               plain version, a one-call PyTorch yardstick where there is
               one, and the card's bound.  Times are device times (CUDA
               events around calls queued while a spin kernel holds the card:
-              device_ms), with the host's wall clock per call of
-              back-to-back calls beside them.  The Hopper kernels are
-              relaunched and must repeat their first output bit for bit.
+              device_ms; the training path's kernels of a size near the
+              L2 cache's, the dispatch kernels, over rotating copies of
+              their inputs, so from a cold L2 as on the path), with the
+              host's wall clock per call of back-to-back calls beside
+              them.  The Hopper kernels and scatter_rows are relaunched
+              and must repeat their first output bit for bit; the
+              dispatch kernels must equal their plain versions bit for
+              bit.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace; every request must finish with finite logits
@@ -118,7 +123,7 @@ def device_phase() -> str:
 # shared mainloop's instantiations name their epilogue: RaggedStore for
 # ragged_matmul, SwigluStore for ragged_swiglu, FusedUpStore and
 # FusedCombine for fused_moe's passes)
-HOPPER_KERNELS = ("ragged_wgmma", "grouped_matmul_wgmma", "flash_wgmma_kernel",
+HOPPER_KERNELS = ("ragged_wgmma", "grouped_wgmma", "flash_wgmma_kernel",
                   "weight_grad_wgmma")
 NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
 
@@ -203,6 +208,32 @@ def device_ms(fn, iters: int = 10, kernel_call: bool = False) -> tuple[float, fl
                          "cannot be read apart from the host's")
     note = "" if queued else " (synchronizes: includes host time)"
     return start.elapsed_time(stop) / iters, host_ms, note
+
+
+L2_BYTES = 50e6       # the H100's L2 cache
+
+
+def rotated(fn, args, nbytes: float):
+    """``fn(*args)`` as a call that ``device_ms`` times from a cold L2 cache
+    when the work moves little more than the cache holds (``nbytes``): each
+    call takes the next of n copies of the tensor inputs, and each output
+    is kept until n calls later, so that between two uses of one buffer the
+    calls move 4x the cache's bytes.  Back to back on one set of buffers,
+    such work is partly served from the L2 and reads above its HBM bound;
+    on the path the other kernels between two calls evict it."""
+    import collections
+    import itertools
+    import math
+
+    import torch
+    n = math.ceil(4 * L2_BYTES / nbytes)
+    if n <= 1:
+        return lambda: fn(*args)
+    sets = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                     for _ in range(n - 1)]
+    outs = collections.deque(maxlen=n)
+    turn = itertools.cycle(sets)
+    return lambda: outs.append(fn(*next(turn)))
 
 
 def bound_ms(E_, M, K, N, n_weights: int, elem_bytes: int = 2):
@@ -293,9 +324,8 @@ def kernels_phase() -> dict:
                 raise SystemExit(f"{name} disagrees with its plain version at M={M} "
                                  f"(bf16 tol {TOL_BF16}, f32 tol {TOL_F32}): "
                                  f"err bf16 {errb:.3e} f32 {err32:.3e}")
-            if name == "grouped_matmul":
-                repeat_check(name, f"E={E} M={M} K={s['K']} N={s['N']}",
-                             lambda: s["fn"](xb, *wsb), gotb)
+            repeat_check(name, f"E={E} M={M} K={s['K']} N={s['N']}",
+                         lambda: s["fn"](xb, *wsb), gotb)
             ms, host_ms, _ = device_ms(lambda: s["fn"](xb, *wsb), kernel_call=True)
             plain_ms, plain_host, plain_note = device_ms(lambda: s["plain"](xb, *wsb))
             lib_ms, lib_host, lib_note = (device_ms(lambda: s["library"](xb, *wsb))
@@ -369,6 +399,10 @@ def train_kernels_phase() -> dict:
     recv_src = torch.where(recv_pos >= 0, recv_pos, -1).to(torch.int32)
     weights = torch.rand((T_CHUNK, TOP_K), generator=gen, device=dev)
     weights = weights / weights.sum(-1, keepdim=True)
+    # the combine backward's scatter: each ragged row a slot weight, rows
+    # past the routed load and padding rows of a block dead
+    wrow = torch.rand(R, generator=gen, device=dev)
+    recv_read = int(((recv_src >= 0) & (torch.arange(R, device=dev) < live)).sum())
 
     def randn(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev).mul_(scale)
@@ -395,16 +429,25 @@ def train_kernels_phase() -> dict:
               f"has no one-call yardstick here", flush=True)
 
     # name -> list of shape cases; each case: (label, kernel fn, plain fn,
-    # fp32 inputs, library fn or None, bytes, flops, tolerance fp32)
+    # fp32 inputs, library fn or None, bytes, flops, tolerance fp32: 0 for
+    # bit-equality in both dtypes)
     cases = {
-        "scatter_rows": [(
-            f"R={rows} T={T_CHUNK} d={D_MODEL}", dc.scatter_rows,
-            ref.scatter_rows_ref, (x_chunk, send_src, rows),
-            # every row of the send buffer is live here, so index_select of
-            # the source rows is the same function on these inputs
-            lambda x, src, _: torch.index_select(x, 0, src),
-            # each of the T source rows read once, the R rows written
-            el * (T_CHUNK + rows) * D_MODEL, 0, 0.0)],
+        "scatter_rows": [
+            (f"R={rows} T={T_CHUNK} d={D_MODEL}", dc.scatter_rows,
+             ref.scatter_rows_ref, (x_chunk, send_src, rows),
+             # every row of the send buffer is live here, so index_select of
+             # the source rows is the same function on these inputs
+             lambda x, src, _: torch.index_select(x, 0, src),
+             # each of the T source rows read once, the R rows written, the
+             # row map read
+             el * (T_CHUNK + rows) * D_MODEL + 4 * rows, 0, 0.0),
+            (f"R={R} T={rows} d={D_MODEL}, slot weights, {recv_read} rows live "
+             f"(combine backward)", dc.scatter_rows, ref.scatter_rows_ref,
+             (x_rows, recv_src, total, wrow),
+             None,                 # no one PyTorch call writes the zeros and the scale
+             # the live rows read, every row written, the row map and the
+             # weights read; one multiply per live element
+             el * (recv_read + R) * D_MODEL + (4 + el) * R, recv_read * D_MODEL, 0.0)],
         "gather_combine": [
             (f"T={T_CHUNK} K={TOP_K} d={D_MODEL} (EP combine)", dc.gather_combine,
              ref.gather_combine_ref,
@@ -476,15 +519,18 @@ def train_kernels_phase() -> dict:
             gotb, wantb = fn(*argsb), plain(*argsb)
             torch.cuda.synchronize()
             err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
-            ok = (_close(got32, want32, max(tol32, 1e-6)) and _close(gotb, wantb, TOL_BF16))
+            if tol32 == 0.0:
+                ok = torch.equal(got32, want32) and torch.equal(gotb, wantb)
+            else:
+                ok = _close(got32, want32, tol32) and _close(gotb, wantb, TOL_BF16)
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at {label}: "
                                  f"err bf16 {errb:.3e} f32 {err32:.3e}")
-            if name in ("ragged_matmul", "ragged_swiglu", "fused_moe"):
+            if name in ("ragged_matmul", "ragged_swiglu", "fused_moe", "scatter_rows"):
                 repeat_check(name, label, lambda: fn(*argsb), gotb)
             iters = 3 if flops > 1e11 else 10
-            ms, host_ms, _ = device_ms(lambda: fn(*argsb), iters, kernel_call=True)
-            plain_ms, plain_host, plain_note = device_ms(lambda: plain(*argsb), iters)
+            ms, host_ms, _ = device_ms(rotated(fn, argsb, nbytes), iters, kernel_call=True)
+            plain_ms, plain_host, plain_note = device_ms(rotated(plain, argsb, nbytes), iters)
             lib_ms = lib_host = lib_err = None
             lib_note = ""
             if library is not None:
@@ -504,7 +550,8 @@ def train_kernels_phase() -> dict:
                         raise SystemExit(f"{name}'s library yardstick disagrees with "
                                          f"the plain version at {label}: {lib_err:.3e}")
                     del lib_out, lib_want
-                    lib_ms, lib_host, lib_note = device_ms(lambda: library(*argsb), iters)
+                    lib_ms, lib_host, lib_note = device_ms(rotated(library, argsb, nbytes),
+                                                           iters)
             bms, by = _bound(nbytes, flops)
             row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32,
                    "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -526,7 +573,7 @@ def train_kernels_phase() -> dict:
             **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
-    del w1, w3, w2, x_rows, x_chunk
+    del w1, w3, w2, x_rows, x_chunk, wrow
     torch.cuda.empty_cache()
     entries["segment_outer"] = weight_grad_kernel(buf, h, b2e, total, live, offs, gen)
     del buf, h
@@ -759,8 +806,11 @@ STEP_GROUPS = {"fused_moe": ("FusedUpStore", "FusedCombine"),
                "ragged_swiglu": ("SwigluStore",),
                "ragged_matmul": ("RaggedStore",),
                "segment_outer": ("weight_grad_wgmma",),
-               "dispatch": ("scatter_rows", "gather_combine"),
-               "grouped (serving)": ("grouped_",)}
+               "dispatch": ("scatter_rows", "gather_combine")}
+# the serving kernels by their names in the profiler: bf16 runs the weight
+# stream (grouped_wgmma<number of weights>), fp32 the tile loop
+SERVE_GROUPS = {"grouped_swiglu": ("grouped_wgmma<2>", "grouped_kernel<2>"),
+                "grouped_matmul": ("grouped_wgmma<1>", "grouped_kernel<1>")}
 
 
 def profile_step(trainer, state) -> None:
@@ -1013,12 +1063,17 @@ def profile_phase() -> None:
     rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[2] for r in rows)
-    ours_us = sum(r[2] for r in rows if "grouped_" in r[0])
+    by_kernel = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
+                 for g, keys in SERVE_GROUPS.items()}
     wall_us = 1e6 * m["elapsed_s"]
+    passes = m["decode_waves"] + m["prefill_chunks"]
     print(f"profiled run: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{device_us / 1e3:.1f} ms ({100 * device_us / wall_us:.1f}%, idle "
-          f"{100 - 100 * device_us / wall_us:.1f}%), of which the grouped kernels "
-          f"{ours_us / 1e3:.1f} ms ({100 * ours_us / max(device_us, 1):.1f}% of device time); "
+          f"{100 - 100 * device_us / wall_us:.1f}%), {device_us / 1e3 / passes:.2f} ms "
+          f"a forward pass; by kernel: "
+          + ", ".join(f"{g} {us / 1e3:.1f} ms ({100 * us / max(device_us, 1):.1f}%)"
+                      for g, us in by_kernel.items())
+          + f", everything else {(device_us - sum(by_kernel.values())) / 1e3:.1f} ms; "
           f"against the unprofiled warm wall {1e3 * warm_s:.1f} ms the device is idle "
           f"{100 - 100 * (device_us / 1e6) / warm_s:.1f}%", flush=True)
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:

@@ -13,15 +13,34 @@
 //
 // What bounds it on an H100: bytes.  Each output row is one input row (or K
 // of them) moved once: at the training path's shapes (R = 4096 rows of
-// d = 4096 bf16) scatter_rows moves 2 x 33.6 MB, about 0.02 ms at 3.35 TB/s.
+// d = 4096 bf16) scatter_rows reads 16.8 MB and writes 33.6 MB, at least
+// 0.015 ms at 3.35 TB/s, so what decides its speed is how many bytes each SM
+// keeps in flight and how little else a block does.
 //
-// Design: one block of 128 threads per output row; each thread moves
-// 16-byte vectors along d (8 bf16 or 4 fp32 values), converts to fp32, and
-// scales/accumulates with explicitly rounded multiplies and adds
-// (__fmul_rn / __fadd_rn), so no contraction into an FMA changes a bit
-// against the plain version.  The TPU kernels keep the whole source in VMEM
-// and loop over the rows of an output block; here the L2 cache holds the
-// source and the rows of a block are the grid.  d must be a multiple of 8.
+// scatter_rows: one warp per output row, four rows a block.  A lane holds
+// 8 of its row's 16-byte vectors in registers and issues all 8 loads before
+// its first store, so a warp keeps 4 KB of its row in flight (a d = 4096
+// bf16 row takes two such rounds).  Dead rows (src[r] < 0 or r >=
+// *total_rows) read nothing and store zeros.  The stores stream past the
+// L2 cache (st.global.cs, evict first), so the larger output does not push
+// out the source rows that a token's other copies (top-k > 1) read again.
+// Chosen by timing variants on the H100 at the path's two shapes: 4 or 16
+// vectors a lane and 8 rows a block were slower, and plain stores much
+// slower where sources repeat; one 128-thread block per row, each thread
+// storing a vector before loading the next, kept too few bytes in flight.
+// A bulk async copy (cp.async.bulk through shared memory) would spare the
+// registers, but it cannot scale a row, and registers already keep enough
+// in flight.
+//
+// gather_combine: one block of 128 threads per output row; each thread
+// moves 16-byte vectors along d and sums its K slot rows in fp32.
+//
+// Both convert to fp32 and scale/accumulate with explicitly rounded
+// multiplies and adds (__fmul_rn / __fadd_rn), so no contraction into an
+// FMA changes a bit against the plain version; an unweighted scatter copies
+// the bits.  The TPU kernels keep the whole source in VMEM and loop over the
+// rows of an output block; here the L2 cache holds the source and the rows
+// of a block are the grid.  d must be a multiple of 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,30 +78,52 @@ __device__ __forceinline__ void store(float* p, const float* v) {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// a 16-byte vector of bf16 or fp32 values times scale, rounded once
+__device__ __forceinline__ uint4 scaled(uint4 raw, float scale, const __nv_bfloat16*) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    h[i] = __floats2bfloat162_rn(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+  }
+  return raw;
+}
+__device__ __forceinline__ uint4 scaled(uint4 raw, float scale, const float*) {
+  float* f = reinterpret_cast<float*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __fmul_rn(f[i], scale);
+  return raw;
+}
+
+constexpr int ROW_WARPS = 4;   // scatter_rows: rows (one warp each) a block
+constexpr int UNROLL = 8;      // 16-byte vectors a lane keeps in flight
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * ROW_WARPS)
 scatter_rows_kernel(const T* __restrict__ x, const int* __restrict__ src,
-                    const int* __restrict__ total_rows, const T* __restrict__ w,
-                    T* __restrict__ out, int d) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int r = blockIdx.x;
+                    const int* __restrict__ total_rows, int rows, const T* __restrict__ w,
+                    T* __restrict__ out, int R, int d) {
+  const int r = blockIdx.x * ROW_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= R) return;
   const int s = src[r];
-  const bool live = s >= 0 && r < *total_rows;
-  const float scale = (live && w) ? to_f(w[r]) : 1.0f;
-  T* o = out + (size_t)r * d;
-  for (int c = threadIdx.x * VEC; c < d; c += THREADS * VEC) {
-    float v[VEC];
-    if (live) {
-      load(x + (size_t)s * d + c, v);
-      if (w) {
+  const bool live = s >= 0 && r < (total_rows ? *total_rows : rows);
+  const bool scale_row = live && w != nullptr;
+  const float scale = scale_row ? to_f(w[r]) : 1.0f;
+  const int nv = d / (16 / (int)sizeof(T));
+  const uint4* in = reinterpret_cast<const uint4*>(x + (size_t)(live ? s : 0) * d);
+  uint4* o = reinterpret_cast<uint4*>(out + (size_t)r * d);
+  for (int c0 = lane; c0 < nv; c0 += 32 * UNROLL) {
+    uint4 v[UNROLL];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) v[i] = __fmul_rn(v[i], scale);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) v[i] = 0.0f;
+    for (int i = 0; i < UNROLL; ++i) {
+      const int c = c0 + 32 * i;
+      v[i] = live && c < nv ? __ldg(in + c) : make_uint4(0u, 0u, 0u, 0u);
     }
-    store(o + c, v);
+#pragma unroll
+    for (int i = 0; i < UNROLL; ++i) {
+      const int c = c0 + 32 * i;
+      if (c < nv) __stcs(o + c, scale_row ? scaled(v[i], scale, x) : v[i]);
+    }
   }
 }
 
@@ -113,21 +154,26 @@ gather_combine_kernel(const T* __restrict__ buf, const int* __restrict__ slots,
 
 // Plain C interface for ctypes: pointers and the stream as void*, returns
 // cudaGetLastError() right after the launch (0 = launched).  A null weight
-// pointer means no weights (scale 1).
+// pointer means no weights (scale 1).  scatter_rows reads the live rows from
+// the device at total_rows, or, when that pointer is null, takes the host's
+// count `rows` (no device tensor, so no fill kernel, for a count the caller
+// knows).
 
-extern "C" int scatter_rows_bf16(const void* x, const void* src, const void* total_rows,
+extern "C" int scatter_rows_bf16(const void* x, const void* src, const void* total_rows, int rows,
                                  const void* w, void* out, int R, int d, void* stream) {
-  scatter_rows_kernel<__nv_bfloat16><<<R, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int*)src, (const int*)total_rows,
-      (const __nv_bfloat16*)w, (__nv_bfloat16*)out, d);
+  scatter_rows_kernel<__nv_bfloat16>
+      <<<(R + ROW_WARPS - 1) / ROW_WARPS, 32 * ROW_WARPS, 0, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)x, (const int*)src, (const int*)total_rows, rows,
+          (const __nv_bfloat16*)w, (__nv_bfloat16*)out, R, d);
   return (int)cudaGetLastError();
 }
 
-extern "C" int scatter_rows_f32(const void* x, const void* src, const void* total_rows,
+extern "C" int scatter_rows_f32(const void* x, const void* src, const void* total_rows, int rows,
                                 const void* w, void* out, int R, int d, void* stream) {
-  scatter_rows_kernel<float><<<R, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)src, (const int*)total_rows, (const float*)w, (float*)out,
-      d);
+  scatter_rows_kernel<float>
+      <<<(R + ROW_WARPS - 1) / ROW_WARPS, 32 * ROW_WARPS, 0, (cudaStream_t)stream>>>(
+          (const float*)x, (const int*)src, (const int*)total_rows, rows, (const float*)w,
+          (float*)out, R, d);
   return (int)cudaGetLastError();
 }
 

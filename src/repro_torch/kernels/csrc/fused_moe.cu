@@ -138,7 +138,7 @@ fused_up_kernel(const T* __restrict__ x, const int* __restrict__ src, const T* _
   const int m0 = blockIdx.y * tm, n0 = blockIdx.x * BN;
   if (m0 >= *total_rows) return;  // dead block: the down pass skips it too
   const size_t e = (size_t)b2e[m0 / bm];
-  tile<T, 2, false>(x, src, w1 + e * d * f, w3 + e * d * f, m0, tm, n0, d, f, cs);
+  tile<2, false>(x, src, w1 + e * d * f, w3 + e * d * f, m0, tm, n0, d, f, cs);
   store_tile(h, cs, m0, tm, n0, f);
 }
 
@@ -152,13 +152,13 @@ fused_down_kernel(const T* __restrict__ h, const int* __restrict__ src,
   const int m0 = blockIdx.y * tm, n0 = blockIdx.x * BN;
   if (m0 >= *total_rows) return;
   const size_t e = (size_t)b2e[m0 / bm];
-  tile<T, 1, false>(h, nullptr, w2 + e * f * d, nullptr, m0, tm, n0, f, d, cs);
+  tile<1, false>(h, nullptr, w2 + e * f * d, nullptr, m0, tm, n0, f, d, cs);
   for (int idx = threadIdx.x; idx < tm * BN; idx += THREADS) {
     const int r = idx / BN, c = idx % BN;
     const int t = src[m0 + r];
     if (t >= 0 && n0 + c < d)
       atomicAdd(acc + (size_t)t * d + n0 + c,
-                __fmul_rn(cs[r * CS_LD + c], to_f(wslot[m0 + r])));
+                __fmul_rn(cs[r * CS_LD + c], wslot[m0 + r]));
   }
 }
 

@@ -127,8 +127,8 @@ ragged_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restr
   const int m0 = blockIdx.y * tm, n0 = blockIdx.x * BN;
   if (m0 < *total_rows) {
     const size_t e = (size_t)b2e[m0 / bm];
-    tile<T, NW, TRANS>(x, nullptr, w + e * K * N, NW == 2 ? w3 + e * K * N : nullptr, m0, tm,
-                       n0, K, N, cs);
+    tile<NW, TRANS>(x, nullptr, w + e * K * N, NW == 2 ? w3 + e * K * N : nullptr, m0, tm, n0,
+                    K, N, cs);
   } else {
     for (int idx = threadIdx.x; idx < tm * BN; idx += THREADS)
       cs[(idx / BN) * CS_LD + idx % BN] = 0.0f;

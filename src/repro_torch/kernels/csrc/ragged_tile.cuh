@@ -1,8 +1,7 @@
-// The tiled loop of the port's first expert-FFN kernels: the fp32 forms of
-// grouped_mlp.cu, ragged_mlp.cu and fused_moe.cu, and bf16 grouped_swiglu
-// (the other bf16 kernels run hopper.cuh's designs; weight_grad.cu's fp32
-// loop borrows load_tile).  The
-// caller picks the expert: per grid z index in the capacity layout, per row
+// The tiled loop of the port's first expert-FFN kernels, now their fp32
+// forms: grouped_mlp.cu, ragged_mlp.cu and fused_moe.cu (every bf16 kernel
+// runs hopper.cuh's designs; the fp32 loops of flash_attention.cu and
+// weight_grad.cu borrow load_tile).  The caller picks the expert: per grid z index in the capacity layout, per row
 // block from block_to_expert in the ragged one.
 //
 // Ragged layout (the JAX package's MegaBlocks-style flat layout): A (R, K)
@@ -18,15 +17,13 @@
 // never straddle two row blocks (two experts); in the capacity layout tm =
 // min(64, M - m0).  A K loop stages a tm x 32 tile of A (rows past tm
 // zero-filled) and a 32 x 64 tile of each weight in shared memory with
-// 16-byte loads; the fp32 sums stay in registers.
-//   bf16: WMMA 16x16x16 on the tensor cores, each warp a 32x32 sub-tile;
-//         warps whose rows all lie past tm skip their products.
-//   fp32: FMA on the CUDA cores, each thread a 4x8 sub-tile.
+// 16-byte loads; the sums stay in registers, FMA on the CUDA cores, each
+// thread a 4x8 sub-tile.
 // A's rows may be gathered through a row map (row r of A is read as row
 // map[r], none when map[r] < 0), which is how the fused kernel
 // dispatches tokens without building the (R, d) buffer.  K and N must be
-// multiples of 8 (one 16-byte vector of bf16) and the pointers 16-byte
-// aligned; the wrappers check both.
+// multiples of 8 (the wrappers' rule for both dtypes) and the pointers
+// 16-byte aligned; the wrappers check both.
 //
 // The epilogue is the caller's: it gets the fp32 tile (silu(a) * b already
 // applied when NW == 2) in shared memory, tm x 64 at pitch CS_LD, and may
@@ -36,29 +33,18 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace ragged {
 
 constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
 constexpr int XS_LD = BK + 8;   // shared-memory pitches, padded against bank
-constexpr int WS_LD = BN + 8;   // conflicts; multiples of 8 elements as WMMA
-constexpr int WT_LD = BK + 8;   // requires (4 for fp32)
+constexpr int WS_LD = BN + 8;   // conflicts; multiples of 4 elements for the
+constexpr int WT_LD = BK + 8;   // float4 reads
 constexpr int CS_LD = BN + 4;
 constexpr int W_TILE = (BK * WS_LD > BN * WT_LD) ? BK * WS_LD : BN * WT_LD;
 
 __device__ __forceinline__ float silu(float a) { return a / (1.0f + expf(-a)); }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Copy a rows x cols tile starting at (row0, col0) of a row-major matrix
 // with leading dimension ld into shared memory, 16 bytes per thread-step;
@@ -97,81 +83,9 @@ __device__ __forceinline__ void load_w(T* ws, const T* __restrict__ w, int K, in
 // The tile's fp32 result, silu(acc1) * acc3 when NW == 2, into cs (BM x
 // CS_LD).  A: rows m0..m0+tm of a (R, K) matrix, through `map` if given.
 template <int NW, bool TRANS>
-__device__ void tile_bf16(const __nv_bfloat16* __restrict__ a, const int* __restrict__ map,
-                          const __nv_bfloat16* __restrict__ w1,
-                          const __nv_bfloat16* __restrict__ w3, int m0, int tm, int n0, int K,
-                          int N, float* cs) {
-  using namespace nvcuda;
-  using WLayout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-  __shared__ __align__(128) __nv_bfloat16 xs[BM * XS_LD];
-  __shared__ __align__(128) __nv_bfloat16 ws[NW][W_TILE];
-  const __nv_bfloat16* wp[2] = {w1, w3};
-
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const bool live = wm < tm;  // warp-uniform: rows past tm need no products
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2][2];
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[w][i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(xs, XS_LD, a, K, BM, BK, m0, k0, m0 + tm, K, map);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) load_w<__nv_bfloat16, TRANS>(ws[w], wp[w], K, N, k0, n0);
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], xs + (wm + 16 * i) * XS_LD + kk, XS_LD);
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, WLayout> fb;
-            if constexpr (TRANS)
-              wmma::load_matrix_sync(fb, ws[w] + (wn + 16 * j) * WT_LD + kk, WT_LD);
-            else
-              wmma::load_matrix_sync(fb, ws[w] + kk * WS_LD + wn + 16 * j, WS_LD);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[w][i][j], fa[i], fb, acc[w][i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // fragments of one type share their element mapping, so silu(a)*b is
-  // taken element by element in registers before the tile is staged
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (NW == 2) {
-#pragma unroll
-          for (int t = 0; t < acc[0][i][j].num_elements; ++t)
-            acc[0][i][j].x[t] = silu(acc[0][i][j].x[t]) * acc[1][i][j].x[t];
-        }
-        wmma::store_matrix_sync(cs + (wm + 16 * i) * CS_LD + wn + 16 * j, acc[0][i][j], CS_LD,
-                                wmma::mem_row_major);
-      }
-  }
-  __syncthreads();
-}
-
-template <int NW, bool TRANS>
-__device__ void tile_f32(const float* __restrict__ a, const int* __restrict__ map,
-                         const float* __restrict__ w1, const float* __restrict__ w3, int m0,
-                         int tm, int n0, int K, int N, float* cs) {
+__device__ void tile(const float* __restrict__ a, const int* __restrict__ map,
+                     const float* __restrict__ w1, const float* __restrict__ w3, int m0, int tm,
+                     int n0, int K, int N, float* cs) {
   __shared__ __align__(128) float xs[BM * XS_LD];
   __shared__ __align__(128) float ws[NW][W_TILE];
   const float* wp[2] = {w1, w3};
@@ -229,23 +143,13 @@ __device__ void tile_f32(const float* __restrict__ a, const int* __restrict__ ma
   __syncthreads();
 }
 
-template <typename T, int NW, bool TRANS>
-__device__ __forceinline__ void tile(const T* a, const int* map, const T* w1, const T* w3,
-                                     int m0, int tm, int n0, int K, int N, float* cs) {
-  if constexpr (sizeof(T) == 2)
-    tile_bf16<NW, TRANS>(a, map, w1, w3, m0, tm, n0, K, N, cs);
-  else
-    tile_f32<NW, TRANS>(a, map, w1, w3, m0, tm, n0, K, N, cs);
-}
-
 // Store the tile's first tm rows, columns n0.. below N, of the fp32 tile cs
-// into rows m0.. of the row-major (.., N) matrix out in its type.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ out, const float* cs, int m0, int tm,
-                                           int n0, int N) {
+// into rows m0.. of the row-major (.., N) matrix out.
+__device__ __forceinline__ void store_tile(float* __restrict__ out, const float* cs, int m0,
+                                           int tm, int n0, int N) {
   for (int idx = threadIdx.x; idx < tm * BN; idx += THREADS) {
     const int r = idx / BN, c = idx % BN;
-    if (n0 + c < N) out[(size_t)(m0 + r) * N + n0 + c] = from_f<T>(cs[r * CS_LD + c]);
+    if (n0 + c < N) out[(size_t)(m0 + r) * N + n0 + c] = cs[r * CS_LD + c];
   }
 }
 

@@ -48,9 +48,11 @@ def scatter_rows(x: torch.Tensor, src: torch.Tensor, total_rows,
     out = torch.empty((R, x.shape[1]), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    # a count the host knows goes by value: no device tensor to fill
+    rows = (_cuda.total_rows_on(total_rows, x.device), 0) if isinstance(
+        total_rows, torch.Tensor) else (None, min(int(total_rows), R))
     _cuda.launch("dispatch", f"scatter_rows_{_cuda.SUFFIX[x.dtype]}",
-                 [x, src, _cuda.total_rows_on(total_rows, x.device), weights,
-                  out, R, x.shape[1]], x.device)
+                 [x, src, *rows, weights, out, R, x.shape[1]], x.device)
     scatter_rows.launches += 1
     return out
 

@@ -3,13 +3,14 @@
 ``grouped_swiglu`` and ``grouped_matmul`` take the capacity layout of the
 expert FFN, x (E, M, K) against stacked expert weights (E, K, N).  On a CUDA
 tensor they launch the hand-written kernels of ``csrc/grouped_mlp.cu``
-(built by ``kernels/build.py``): bf16 ``grouped_matmul`` streams the weights
-through a TMA ring into ``wgmma`` (``csrc/hopper.cuh``), the fp32 form and
-``grouped_swiglu`` run the tile loop of ``csrc/ragged_tile.cuh``.  On a CPU
-tensor they compute the plain version from ``kernels/ref.py``.  There is no
-other path: a failed build or launch raises, and so does a launch under
-autograd on operands that require grad (the kernels have no backward;
-training takes the fused EP leg).
+(built by ``kernels/build.py``): in bf16 both stream the weights through a
+TMA ring into ``wgmma`` (``csrc/hopper.cuh``; ``grouped_swiglu`` streams w1
+and w3 side by side, with silu(a) * b in the epilogue), in fp32 both run
+the tile loop of ``csrc/ragged_tile.cuh``.  On a CPU tensor they compute
+the plain version from ``kernels/ref.py``.  There is no other path: a
+failed build or launch raises, and so does a launch under autograd on
+operands that require grad (the kernels have no backward; training takes
+the fused EP leg).
 Each wrapper counts its kernel launches in ``.launches``.
 """
 
@@ -20,7 +21,16 @@ import torch
 from repro_torch.kernels import _cuda, ref
 
 _VEC = 8          # K and N in multiples of one 16-byte vector of bf16
-_MAX_M = 64 * 65535   # 64-row M tiles on the grid's y axis
+_INT_MAX = 2 ** 31 - 1
+
+
+def _max_m(dtype: torch.dtype, E: int, N: int) -> int:
+    """The largest M a route takes: the fp32 tile loop puts its 64-row M
+    tiles on the grid's y axis (at most 65535 blocks); the bf16 stream
+    counts its (expert, 128-column N panel, 64-row M tile) tiles in an int."""
+    if dtype == torch.float32:
+        return 64 * 65535
+    return 64 * (_INT_MAX // max(1, E * -(-N // 128)))
 
 
 def _check(x: torch.Tensor, ws: tuple) -> tuple[int, int, int, int]:
@@ -52,9 +62,10 @@ def _launch(wrapper, x: torch.Tensor, ws: tuple, dims) -> torch.Tensor:
                       "through the EP strategy's fused expert leg "
                       "(DistContext(moe_strategy='ep_shardmap', moe_fused=True)) "
                       "or its ragged one (moe_ragged=True)")
-    if K % _VEC or N % _VEC or M > _MAX_M:
+    max_m = _max_m(x.dtype, E, N)
+    if K % _VEC or N % _VEC or M > max_m:
         raise ValueError(f"{op}: K={K} and N={N} must be multiples of {_VEC} "
-                         f"and M={M} at most {_MAX_M}")
+                         f"and M={M} at most {max_m}")
     _cuda.operands(op, (x, *ws), x.dtype, x.device)
     out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or K == 0:

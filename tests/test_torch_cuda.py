@@ -22,9 +22,9 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch as dsp
+from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels import dispatch_cuda as dc
 from repro_torch.kernels import grouped_mlp as gm
-from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_moe import fused_moe
 from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
@@ -126,6 +126,46 @@ def test_grouped_matmul_bf16_is_deterministic_at_large_k(cuda, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 64])
+def test_grouped_swiglu_bf16_is_deterministic_at_large_k(cuda, M):
+    """Mixtral-8x7B's up-projections at a decode wave (M 4) and at a full
+    64-row tile: two weights share each stage of the ring, so a stage
+    released early would corrupt either product; 8 relaunches must equal
+    the first bit for bit, and the plain version to tolerance."""
+    E, K, N = 8, 4096, 14336
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((E, M, K), generator=g, device=cuda).bfloat16()
+    w1, w3 = ((torch.randn((E, K, N), generator=g, device=cuda) * K ** -0.5).bfloat16()
+              for _ in range(2))
+    first = gm.grouped_swiglu(x, w1, w3)
+    for _ in range(8):
+        torch.testing.assert_close(gm.grouped_swiglu(x, w1, w3), first, rtol=0, atol=0)
+    _assert_close(first, ref.grouped_swiglu_ref(x, w1, w3), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_weights", [1, 2])
+@pytest.mark.parametrize("E,M,N", [(1, 1, 200), (1, 65, 200), (1, 130, 72), (2, 70, 136)])
+def test_grouped_bf16_stores_nothing_past_m_or_n(cuda, E, M, N, n_weights):
+    """The weight stream computes whole 64-row x 128-column tiles, and the
+    rows past M and columns past N of a tile must never be stored.  The
+    kernel writes into a buffer longer than (E, M, N), filled with a
+    sentinel: the last expert's rows past M and the columns past N of its
+    last row would land in the tail, which must keep the sentinel (with M 1
+    every column past N would); the head must hold the plain result."""
+    K = 96
+    x, *ws = _inputs(E, M, K, N, n_weights, torch.bfloat16, cuda)
+    op = "grouped_swiglu" if n_weights == 2 else "grouped_matmul"
+    plain = ref.grouped_swiglu_ref if n_weights == 2 else ref.grouped_matmul_ref
+    tail = 128 * 256
+    buf = torch.full((E * M * N + tail,), 7.0, dtype=torch.bfloat16, device=cuda)
+    _cuda.launch("grouped_mlp", f"{op}_bf16", [x, *ws, buf, E, M, K, N], cuda)
+    torch.cuda.synchronize()
+    assert bool((buf[E * M * N:] == 7.0).all())
+    _assert_close(buf[:E * M * N].view(E, M, N), plain(x, *ws), torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_expert_ffn_on_card_matches_plain(cuda):
     """Folded batch rows through both kernels, one launch each."""
     E, C, d, f = 4, 3, 128, 256
@@ -206,6 +246,32 @@ def test_dispatch_kernels_match_plain(cuda, T, K, d, dtype):
     torch.cuda.synchronize()
     assert (dc.scatter_rows.launches, dc.gather_combine.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4096, 4104, 72])
+def test_scatter_rows_is_bit_equal_with_dead_rows_and_weights(cuda, d, dtype):
+    """scatter_rows at the model's width (whole rounds of a warp's 256
+    vectors), at a width that leaves a partial round (4104) and at one of
+    fewer vectors than a warp has lanes (72): rows with src = -1 inside the
+    live prefix and rows past total_rows (with valid sources, which must not
+    be read) are 0, and live rows equal the plain version bit for bit, with
+    and without slot weights, with total_rows as an int (passed by value)
+    or a device tensor."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    T, R, total = 300, 644, 515
+    x = torch.randn((T, d), generator=g).to(cuda, dtype)
+    src = torch.randint(0, T, (R,), generator=g, dtype=torch.int32)
+    src[torch.rand(R, generator=g) < 0.1] = -1
+    src = src.to(cuda)
+    w = torch.rand(R, generator=g).to(cuda, dtype)
+    for weights in (None, w):
+        for rows in (total, torch.tensor(total, device=cuda)):
+            got = dc.scatter_rows(x, src, rows, weights)
+            want = ref.scatter_rows_ref(x, src, total, weights)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert not got[total:].any() and not got[:total][src[:total] < 0].any()
 
 
 @pytest.mark.cuda
@@ -646,6 +712,15 @@ def test_wrappers_check_shapes_and_types():
         gm.grouped_matmul(x.double(), w.double())
     with pytest.raises(ValueError, match=r"\(E, M, K\)"):
         gm.grouped_swiglu(x[0], w[0], w[0])
+
+
+def test_each_grouped_route_states_its_own_m_limit():
+    """The fp32 tile loop puts its 64-row M tiles on the grid's y axis; the
+    bf16 weight stream walks a persistent grid and is held only to its int
+    tile counter, not to the old grid's limit."""
+    assert gm._max_m(torch.float32, 8, 14336) == 64 * 65535
+    assert gm._max_m(torch.bfloat16, 8, 14336) == 64 * ((2 ** 31 - 1) // (8 * 112))
+    assert gm._max_m(torch.bfloat16, 8, 14336) > 64 * 65535
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
