@@ -29,11 +29,17 @@ Phases, each printing its own lines; any failure exits non-zero:
               bit.
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
-              8-request trace; every request must finish with finite logits
-              and every kernel of the path must have launched.
-5. profile -- the same trace twice more, warm: once plain (warm tok/s),
-              once under torch.profiler (device busy share, device time by
-              kernel).
+              8-request trace, every decode wave and prefill chunk a replay
+              of a captured CUDA graph (serving/engine.py); every request
+              must finish with finite logits, and each grouped kernel must
+              have launched once per MoE layer per pass, replays counted.
+5. profile -- the same trace on the same weights, eager and compiled in
+              turns, three runs each, the compiled ones on warm graphs:
+              streams, admission order and counts must equal the serve
+              phase's.  Then one run each way under torch.profiler (device
+              busy time, by kernel), each run's ms a pass, tok/s, p50/p99,
+              device idle share, peak memory against the modeled peak, and
+              one decode wave both ways: logits bit for bit, device time.
 6. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
               cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
               of 2 x 2048 tokens on the EP strategy at one peer with the
@@ -995,14 +1001,16 @@ def train_ragged_phase() -> dict:
     return launches
 
 
-def serve_phase() -> dict:
-    """Drive the port's serving entry point; returns the kernels' launch
-    counts from this run."""
+def serve_phase():
+    """Drive the port's serving entry point (compiled steps: CUDA graphs);
+    returns the kernels' launch counts from this run and what the profile
+    phase reuses: the weights, the config and what the run served."""
     phase("serve")
     import torch
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.launch import serve
     from repro_torch.models.transformer import num_moe_layers
+    from repro_torch.serving import engine
 
     torch.cuda.reset_peak_memory_stats()
     counters = (gm.grouped_swiglu, gm.grouped_matmul)
@@ -1016,11 +1024,13 @@ def serve_phase() -> dict:
 
     n_moe = num_moe_layers(sched.cfg)
     forwards = m["decode_waves"] + m["prefill_chunks"]
+    info = engine.step_cache_info()
     print(f"serve phase {wall:.1f} s (weights built on the card included); "
           f"{m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, "
           f"p99 {m['latency_p99_s']:.3f} s, {m['decode_waves']} decode waves, "
           f"{m['prefill_chunks']} prefill chunks, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {info['captures']} "
+          f"graphs captured in {info['capture_s']:.3f} s", flush=True)
     print(f"launches {launches}: {n_moe} MoE layers x {forwards} forward passes "
           f"-> {n_moe} of each kernel per decode wave", flush=True)
     unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
@@ -1029,55 +1039,162 @@ def serve_phase() -> dict:
                          f"short {unfinished}")
     if m["nonfinite_logits"]:
         raise SystemExit(f"{m['nonfinite_logits']} sampled logit rows were not finite")
+    if sched.eager or not info["graphs"]:
+        raise SystemExit("the serve path ran no CUDA graph")
     for name, n in launches.items():
         if n != n_moe * forwards:
             raise SystemExit(f"{name} launched {n} times; the path runs it "
                              f"{n_moe * forwards} times (once per MoE layer per pass)")
-    return launches
+    served = {"params": sched.params, "cfg": sched.cfg, "ctx": sched.ctx,
+              "scfg": sched.scfg,
+              "streams": [r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
+              "order": list(sched.admission_order),
+              "waves": m["decode_waves"], "chunks": m["prefill_chunks"]}
+    return launches, served
 
 
-def profile_phase() -> None:
-    """Warm reruns of the serve trace: one plain, one under torch.profiler."""
+def _serve_run(args, params, profiler=None) -> dict:
+    """One run of the serve trace on ``params`` by a new scheduler (eager
+    or compiled per ``args.eager``); the scheduler is dropped at the end, so
+    a later compiled run takes over its static caches and warm graphs."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine
+
+    sched, trace = serve.setup(args, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = engine.step_cache_info()
+    if profiler is None:
+        m = sched.run(trace)
+    else:
+        with profiler:
+            m = sched.run(trace)
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    after = engine.step_cache_info()
+    passes = m["decode_waves"] + m["prefill_chunks"]
+    run = {"eager": args.eager, "metrics": m, "passes": passes,
+           "ms_per_pass": 1e3 * m["elapsed_s"] / passes,
+           "streams": [r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
+           "order": list(sched.admission_order),
+           "captures": after["captures"] - before["captures"],
+           "capture_s": after["capture_s"] - before["capture_s"],
+           "peak": torch.cuda.max_memory_allocated(),
+           "pool_bytes": after["pool_bytes"], "static_bytes": after["static_bytes"]}
+    del sched
+    gc.collect()
+    return run
+
+
+def _fmt_bytes(n) -> str:
+    return "not measured" if n is None else f"{n / 1e6:.1f} MB"
+
+
+class _Holder:
+    """Holds a compiled step's static cache for a timing."""
+
+
+def profile_phase(served: dict) -> None:
+    """The serve trace again on the serve phase's weights, compiled (its
+    graphs warm) and eager in turns, each run by a new scheduler; then one
+    run of each under torch.profiler, and a decode wave's device time both
+    ways.  Streams, admission order and counts must equal the serve
+    phase's."""
     phase("profile")
+    import gc
+
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
+    from repro_torch.serving import engine
 
-    args = serve.parse_args(SERVE_ARGS)
-    sched, trace = serve.setup(args)
-    m = sched.run(trace)
-    print(f"warm rerun: {m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, "
-          f"p99 {m['latency_p99_s']:.3f} s over {m['decode_waves']} decode waves "
-          f"and {m['prefill_chunks']} prefill chunks "
-          f"({1e3 * m['elapsed_s'] / (m['decode_waves'] + m['prefill_chunks']):.2f} "
-          f"ms per forward pass)", flush=True)
-    warm_s = m["elapsed_s"]
-    del sched
-    sched, trace = serve.setup(args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        m = sched.run(trace)
-        torch.cuda.synchronize()
-    # device-side events only: an aten op's row also carries its kernels' time
-    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_us = sum(r[2] for r in rows)
-    by_kernel = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
-                 for g, keys in SERVE_GROUPS.items()}
-    wall_us = 1e6 * m["elapsed_s"]
-    passes = m["decode_waves"] + m["prefill_chunks"]
-    print(f"profiled run: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{device_us / 1e3:.1f} ms ({100 * device_us / wall_us:.1f}%, idle "
-          f"{100 - 100 * device_us / wall_us:.1f}%), {device_us / 1e3 / passes:.2f} ms "
-          f"a forward pass; by kernel: "
-          + ", ".join(f"{g} {us / 1e3:.1f} ms ({100 * us / max(device_us, 1):.1f}%)"
-                      for g, us in by_kernel.items())
-          + f", everything else {(device_us - sum(by_kernel.values())) / 1e3:.1f} ms; "
-          f"against the unprofiled warm wall {1e3 * warm_s:.1f} ms the device is idle "
-          f"{100 - 100 * (device_us / 1e6) / warm_s:.1f}%", flush=True)
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
-        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    params, cfg, ctx, scfg = (served[k] for k in ("params", "cfg", "ctx", "scfg"))
+    want = (served["streams"], served["order"], served["waves"], served["chunks"])
+    gc.collect()                    # the serve phase's scheduler frees its static caches
+    modes = {False: serve.parse_args(SERVE_ARGS),
+             True: serve.parse_args(SERVE_ARGS + ["--eager"])}
+    runs = [_serve_run(modes[eager], params)
+            for eager in (True, False, True, False, True, False)]
+    for r in runs:
+        m = r["metrics"]
+        got = (r["streams"], r["order"], m["decode_waves"], m["prefill_chunks"])
+        if got != want:
+            raise SystemExit(f"the {'eager' if r['eager'] else 'compiled'} serve run "
+                             f"differs from the serve phase's (streams, order, counts)")
+    print(f"serve trace, {runs[0]['passes']} forward passes a run: streams, "
+          f"admission order, decode waves and prefill chunks identical over "
+          f"{len(runs)} runs (eager and compiled) and the serve phase", flush=True)
+
+    # the profiled runs: device busy time, by kernel
+    busy = {}
+    for eager in (False, True):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        r = _serve_run(modes[eager], params, profiler=prof)
+        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        device_us = sum(x[2] for x in rows)
+        by_kernel = {g: sum(x[2] for x in rows if any(k in x[0] for k in keys))
+                     for g, keys in SERVE_GROUPS.items()}
+        busy[eager] = device_us / 1e3
+        name = "eager" if eager else "compiled"
+        print(f"profiled {name} run: wall {1e3 * r['metrics']['elapsed_s']:.1f} ms, "
+              f"device busy {device_us / 1e3:.1f} ms, "
+              f"{device_us / 1e3 / r['passes']:.2f} ms a forward pass; by kernel: "
+              + ", ".join(f"{g} {us / 1e3:.1f} ms ({100 * us / max(device_us, 1):.1f}%)"
+                          for g, us in by_kernel.items())
+              + f", everything else {(device_us - sum(by_kernel.values())) / 1e3:.1f} ms",
+              flush=True)
+        for key, count, us in sorted(rows, key=lambda x: -x[2])[:8]:
+            print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        if not eager and not all(by_kernel.values()):
+            print("torch.profiler does not see the grouped kernels inside graph "
+                  "replays: read the decode wave's device time below (CUDA events)",
+                  flush=True)
+
+    for r in runs:
+        m = r["metrics"]
+        name = "eager" if r["eager"] else "compiled"
+        print(f"warm {name} run: {r['ms_per_pass']:.2f} ms a forward pass, "
+              f"{m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, "
+              f"p99 {m['latency_p99_s']:.3f} s, device idle "
+              f"{100 - 100 * busy[r['eager']] / (1e3 * m['elapsed_s']):.1f}% of the "
+              f"wall; {r['captures']} graphs captured ({r['capture_s']:.3f} s); "
+              f"max_memory_allocated {r['peak'] / 1e9:.3f} GB against the modeled "
+              f"peak {m['modeled_peak_bytes'] / 1e9:.3f} GB; graphs' pool "
+              f"{_fmt_bytes(r['pool_bytes'])}, static buffers "
+              f"{_fmt_bytes(r['static_bytes'])}", flush=True)
+    if any(r["captures"] for r in runs if not r["eager"]):
+        raise SystemExit("a warm compiled run captured a graph: its steps were not warm")
+
+    # one decode wave both ways: logits bit for bit, device time by CUDA events
+    step = engine.get_decode_step(cfg, ctx)
+    a, b = (engine.init_serve_cache(params, cfg, scfg.max_slots, scfg.cache_len)
+            for _ in range(2))
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    diff = 0.0
+    for _ in range(3):
+        tok = torch.randint(0, cfg.vocab_size, (scfg.max_slots, 1), generator=gen).cuda()
+        got, a = step(params, a, tok)
+        want_l, b = step.eager(params, b, tok)
+        diff = max(diff, (got - want_l).abs().max().item())
+    holder = _Holder()
+    own = step.static_cache(a, holder)          # a wave that copies no cache
+    replay_ms, replay_host, _ = device_ms(lambda: step(params, own, tok))
+    # one eager call a timing: its host time must fit under the spin kernel
+    eager_ms, eager_host, note = device_ms(lambda: step.eager(params, b, tok), iters=1)
+    print(f"decode wave (4 slots) compiled against eager: logits max |diff| = "
+          f"{diff:.3e}; device {replay_ms:.4f} / {eager_ms:.4f} ms{note}, host "
+          f"{replay_host:.4f} / {eager_host:.4f} ms a wave", flush=True)
+    if diff != 0.0 or not np.isfinite(diff):
+        raise SystemExit("the decode graph's logits differ from the eager step's")
+    del a, b, own, holder, step
+    engine.clear_step_cache()
+    torch.cuda.empty_cache()
 
 
 def check_phase() -> None:
@@ -1175,8 +1292,10 @@ def main() -> int:
     entries.update(train_kernels_phase())
     entries.update(attention_kernels_phase())
     # each path's launches, its counts set to 0 just before it and read just after
-    paths = {"serve": serve_phase()}
-    profile_phase()
+    launches, served = serve_phase()
+    paths = {"serve": launches}
+    profile_phase(served)
+    del served
     paths["train (fused leg)"] = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
     check_phase()

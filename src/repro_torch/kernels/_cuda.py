@@ -71,6 +71,18 @@ def _ctype(a):
     return ctypes.c_void_p
 
 
+def wrappers() -> tuple:
+    """Every kernel wrapper of the port, each counting its launches in
+    ``.launches`` (a captured step adds its recorded launches at replay)."""
+    from repro_torch.kernels import (dispatch_cuda, flash_attention, fused_moe,
+                                     grouped_mlp, ragged_mlp, weight_grad)
+    return (grouped_mlp.grouped_swiglu, grouped_mlp.grouped_matmul,
+            ragged_mlp.ragged_swiglu, ragged_mlp.ragged_matmul,
+            fused_moe.fused_moe, dispatch_cuda.scatter_rows,
+            dispatch_cuda.gather_combine, weight_grad.segment_outer,
+            flash_attention.flash_attention)
+
+
 def launch(library: str, symbol: str, args: list, device: torch.device) -> None:
     """Call ``symbol`` of ``csrc/<library>.cu`` with ``args`` (tensors, ints,
     floats passed as C floats, or None for a null pointer) on the device's

@@ -6,8 +6,16 @@ memory model, interleaves chunked prefill with decode waves, and the run
 reports aggregate tok/s, p50/p99 request latency and the modeled peak
 against the budget.  Weights are random, from a seeded generator.
 
+On the card each decode wave and prefill chunk replays a CUDA graph of the
+engine's compiled step (``serving/engine.py``), captured at its first call
+for each shape; the summary says how many graphs were captured and how long
+the captures took.  ``--eager`` runs the same steps eagerly instead, the
+counterpart of ``jax.disable_jit``, for comparisons.
+
   # full-width Mixtral-8x7B cut to 4 layers, bf16, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4
+  # the same, every step eager (no CUDA graphs)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4 --eager
   # the reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --smoke --device cpu
@@ -77,12 +85,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-waiting", type=int, default=0,
                     help="overload bound on the WAITING queue (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step eagerly, no CUDA graphs (the "
+                         "counterpart of jax.disable_jit)")
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace):
+def setup(args: argparse.Namespace, params: dict | None = None):
     """Weights on the device, the scheduler and the request trace; returns
-    (scheduler, trace)."""
+    (scheduler, trace).  ``params``: weights that ``args`` already built,
+    reused instead of building them again."""
     import numpy as np
     import torch
 
@@ -101,9 +113,10 @@ def setup(args: argparse.Namespace):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     ctx = DistContext(device=device)
-    params = transformer.init_params(cfg, device=device,
-                                     dtype=getattr(torch, dtype),
-                                     seed=args.seed)
+    if params is None:
+        params = transformer.init_params(cfg, device=device,
+                                         dtype=getattr(torch, dtype),
+                                         seed=args.seed)
 
     rng = np.random.default_rng(args.seed)
     prompt_lens = [int(s) for s in args.prompt_lens.split(",")]
@@ -125,16 +138,22 @@ def setup(args: argparse.Namespace):
     print(f"serving {cfg.name} ({cfg.num_layers} layers, {dtype}, "
           f"{device}): {args.requests} requests, rate={args.arrival_rate}/s, "
           f"slots={args.max_slots}, cache_len={cache_len}, "
-          f"prefill_chunk={args.prefill_chunk}, slot-map")
-    return ContinuousBatchingScheduler(params, cfg, ctx, scfg), trace
+          f"prefill_chunk={args.prefill_chunk}, slot-map, "
+          f"{'eager' if args.eager else 'compiled'} steps")
+    return ContinuousBatchingScheduler(params, cfg, ctx, scfg,
+                                       eager=args.eager), trace
 
 
 def main(argv=None):
     """Parse ``argv``, serve the trace, print the summary; returns
     (scheduler, metrics) to an in-process caller."""
+    from repro_torch.serving import engine
+
     args = parse_args(argv)
     sched, trace = setup(args)
+    before = engine.step_cache_info()
     m = sched.run(trace)
+    after = engine.step_cache_info()
     gen_lo, gen_hi = (int(s) for s in args.gen.split(","))
 
     budget_gb = m["budget_bytes"] / 1e9
@@ -148,6 +167,12 @@ def main(argv=None):
           f"max occupancy {m['max_occupancy']}/{args.max_slots} slots")
     print(f"schedule: {m['decode_waves']} decode waves, "
           f"{m['prefill_chunks']} interleaved prefill chunks")
+    if args.eager or sched.ctx.device.type != "cuda":
+        print("steps: eager, no CUDA graphs")
+    else:
+        print(f"steps: {after['captures'] - before['captures']} CUDA graphs "
+              f"captured in {after['capture_s'] - before['capture_s']:.3f} s "
+              f"(each at its first call, inside the serving time above)")
     if m["shed"] or m["faults"]:
         print(f"resilience: {m['shed']} shed "
               f"(retry-after p50 {m['retry_after_p50_s']:.1f}s), "

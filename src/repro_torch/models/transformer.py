@@ -7,8 +7,10 @@ JAX package stacks the layers of its scanned periods on a leading axis; the
 port keeps them as a list (``bridge.params_from_jax`` unstacks).
 
 A cache is {"pos": (B,) int64 positions, "layers": [per-layer caches]}.
-``decode_step`` and ``extend_step`` update the cache tensors in place and
-return the same dict.
+``decode_step`` and ``extend_step`` update the cache tensors in place, the
+positions included, and return the same dict: a CUDA graph captured over
+them (``serving/engine.py``) reads and writes the same tensors at every
+replay.
 """
 
 from __future__ import annotations
@@ -184,7 +186,7 @@ def decode_step(params: dict, cfg: ModelConfig, ctx: DistContext,
                                                  cfg.layer_specs())):
         x, cache["layers"][i] = blocks.apply_layer_decode(
             layer_params, x, cache["layers"][i], spec, cfg, ctx, pos)
-    cache["pos"] = pos + 1
+    pos.add_(1)          # in place: a captured step reads and writes this tensor
     return unembed(params, cfg, x), cache
 
 
@@ -199,5 +201,5 @@ def extend_step(params: dict, cfg: ModelConfig, ctx: DistContext,
                                                  cfg.layer_specs())):
         x, cache["layers"][i] = blocks.apply_layer_extend(
             layer_params, x, cache["layers"][i], spec, cfg, ctx, pos0)
-    cache["pos"] = pos0 + tokens.shape[1]
+    pos0.add_(tokens.shape[1])
     return unembed(params, cfg, x), cache

@@ -12,6 +12,13 @@
 * **Chunked prefill interleave.**  Prompts are split by
   ``core/chunking.py::chunk_spans`` and prefilled one chunk per scheduler
   step between decode waves.
+* **Compiled steps.**  Waves and chunks run the engine's compiled steps
+  (``serving/engine.py``): on a CUDA device each replays a captured CUDA
+  graph.  The slot pool is the decode step's static cache, and the one
+  request prefilling at a time runs on the extend step's static B=1 cache,
+  so a wave copies only its tokens in and its logits out.  ``eager=True``
+  runs the same steps' eager functions instead, the counterpart of
+  ``jax.disable_jit``: for same-call comparisons and the tests.
 
 Request lifecycle: WAITING -> PREFILL -> ACTIVE -> FINISHED, plus the
 overload exit WAITING -> SHED for never-admitted requests whose deadline
@@ -36,7 +43,6 @@ from repro_torch.configs.base import H100_80G, HardwareProfile, ModelConfig
 from repro_torch.core import memory_model as mm
 from repro_torch.core.chunking import chunk_spans
 from repro_torch.core.moe import DistContext
-from repro_torch.models import transformer
 from repro_torch.runtime.guard import ServingGuard, is_oom_error
 from repro_torch.serving import engine
 
@@ -55,7 +61,7 @@ class Request:
     state: str = WAITING
     slot: int = -1
     chunks_done: int = 0
-    cache: object = None                # private (B=1) cache while prefilling
+    cache: object = None                # its (B=1) cache while prefilling
     next_token: int = -1
     out: list = field(default_factory=list)
     t_done: Optional[float] = None
@@ -95,7 +101,7 @@ _NOT_PORTED = ("page_size", "prefix_cache", "preemption", "expert_batching",
 
 class ContinuousBatchingScheduler:
     def __init__(self, params: dict, cfg: ModelConfig, ctx: DistContext,
-                 scfg: ServeConfig):
+                 scfg: ServeConfig, eager: bool = False):
         asked = [f for f in _NOT_PORTED if getattr(scfg, f)]
         if asked:
             raise NotImplementedError(f"serving options {asked} are not "
@@ -104,11 +110,17 @@ class ContinuousBatchingScheduler:
             raise ValueError("continuous batching serves token-only decoders; "
                              f"{cfg.name!r} needs per-request encoder state")
         self.params, self.cfg, self.ctx, self.scfg = params, cfg, ctx, scfg
+        self.eager = eager
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}          # slot -> request
         self.free_slots = list(range(scfg.max_slots))
         self._prefilling: Optional[Request] = None
-        self.cache = self._new_pool()
+        self._decode = engine.get_decode_step(cfg, ctx)
+        self._extend = engine.get_extend_step(cfg, ctx)
+        self._prefill = engine.get_prefill_fn(cfg, ctx, scfg.cache_len)
+        self.cache = self._static(self._decode, scfg.max_slots)
+        # the prefilling request's cache (None: each prefill makes its own)
+        self._pcache = None if eager else self._static(self._extend, 1)
         self.guard = ServingGuard(deadline_s=scfg.deadline_s,
                                   max_waiting=scfg.max_waiting)
         self.steps = 0
@@ -123,10 +135,16 @@ class ContinuousBatchingScheduler:
         self.requeued = 0
         self.faults = 0
 
-    def _new_pool(self) -> dict:
-        return transformer.init_cache(self.params, self.cfg, self.scfg.max_slots,
-                                      self.scfg.cache_len, torch.float32,
-                                      self.ctx.device)
+    def _static(self, step: engine.CompiledStep, rows: int) -> dict:
+        """A zeroed fp32 cache of ``rows`` rows: one of ``step``'s static
+        caches, held by this scheduler, unless ``eager``."""
+        cache = engine.init_serve_cache(self.params, self.cfg, rows,
+                                        self.scfg.cache_len)
+        return cache if self.eager else step.static_cache(cache, self)
+
+    def _call(self, step: engine.CompiledStep, *args):
+        """A compiled step, or its eager function under ``eager``."""
+        return (step.eager if self.eager else step)(self.params, *args)
 
     # -- memory model -------------------------------------------------------
 
@@ -237,8 +255,15 @@ class ContinuousBatchingScheduler:
         start, stop = spans[req.chunks_done]
         seg = torch.as_tensor(req.tokens[None, start:stop], dtype=torch.long,
                               device=self.ctx.device)
-        logits, req.cache = engine.prefill_chunk(
-            self.params, self.cfg, self.ctx, req.cache, seg, self.scfg.cache_len)
+        if req.cache is None:
+            logits, cache = self._call(self._prefill, {"tokens": seg})
+            if self._pcache is not None:
+                engine.copy_cache_(self._pcache, cache)
+                cache = self._pcache
+        else:
+            full, cache = self._call(self._extend, req.cache, seg)
+            logits = full[:, -1:]
+        req.cache = cache
         req.chunks_done += 1
         self.prefill_chunks += 1
         if req.chunks_done == len(spans):
@@ -294,19 +319,20 @@ class ContinuousBatchingScheduler:
         for slot, req in self.active.items():
             toks[slot, 0] = req.next_token
         try:
-            with torch.no_grad():
-                logits, self.cache = transformer.decode_step(
-                    self.params, self.cfg, self.ctx, self.cache,
-                    torch.as_tensor(toks, device=self.ctx.device))
-                logits = logits.cpu().numpy()  # (slots, 1, V): the host fetch
+            logits, self.cache = self._call(
+                self._decode, self.cache,
+                torch.as_tensor(toks, device=self.ctx.device))
+            logits = logits.cpu().numpy()      # (slots, 1, V): the host fetch
         except Exception as exc:               # is where a real OOM surfaces
             if not is_oom_error(exc):
                 raise
             # the wave's slot pool may be half-written: requeue the accepted
-            # requests and rebuild it; their re-prefills repopulate it
+            # requests and zero it in place (it is the decode graph's static
+            # cache); their re-prefills repopulate it
             self.faults += 1
             self._requeue_active()
-            self.cache = self._new_pool()
+            for t in engine.leaves(self.cache):
+                t.zero_()
             return
         self.decode_waves += 1
         for slot, req in list(self.active.items()):

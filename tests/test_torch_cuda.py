@@ -16,12 +16,20 @@ dispatch kernels move and scale rows with the plain version's rounding
 points, so they are held to equality.  Flash attention: fp32 2e-5, the
 tolerance the JAX package holds its own kernel to; bf16 1e-2 (the kernel
 rounds P to bf16 for P·V, 2**-9 relative per weight, and the output once).
+The serving engine's CUDA graphs replay the eager step's kernels in its
+order on its shapes, so they are held to equality with the eager step.
 """
 
+import gc
+import weakref
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import dispatch as dsp
+from repro_torch.core.moe import DistContext
 from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels import dispatch_cuda as dc
 from repro_torch.kernels import grouped_mlp as gm
@@ -29,6 +37,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_moe import fused_moe
 from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
 from repro_torch.kernels.weight_grad import segment_outer
+from repro_torch.models import transformer
+from repro_torch.serving import engine
+from repro_torch.serving.scheduler import (ContinuousBatchingScheduler, Request,
+                                           ServeConfig)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # (E, M, K, N): M edges below, at and past the 64-row tile; N and K edges
@@ -698,6 +710,136 @@ def test_training_on_the_local_path_raises_on_the_card(cuda):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no backward"):
         train.main(["--arch", "mixtral-8x7b", "--smoke", "--steps", "1"])
+
+
+# -- the serving engine's CUDA graphs ----------------------------------------
+
+# (prompt length, generated tokens): 6 requests through 2 slots, prompts of
+# one and several 16-token chunks and one shorter than a chunk; the reduced
+# config's 64-token window makes the cache_len-80 pool's caches rings
+SERVE_TRACE = [(16, 8), (48, 24), (32, 12), (20, 40), (64, 10), (8, 5)]
+
+
+def _reduced(device, dtype=torch.float32, seed=0):
+    cfg = get_config("mixtral-8x7b").reduced()
+    return cfg, transformer.init_params(cfg, device=device, dtype=dtype, seed=seed)
+
+
+def _serve(params, cfg, device, eager: bool):
+    """Greedy streams, admission order and (decode waves, prefill chunks)."""
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                    max_new_tokens=g) for i, (S, g) in enumerate(SERVE_TRACE)]
+    sched = ContinuousBatchingScheduler(
+        params, cfg, DistContext(device=device),
+        ServeConfig(max_slots=2, cache_len=80, prefill_chunk=16), eager=eager)
+    m = sched.run(reqs)
+    return ([r.out for r in reqs], sched.admission_order,
+            (m["decode_waves"], m["prefill_chunks"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_serving_equals_eager_bit_for_bit(cuda, dtype):
+    cfg, params = _reduced(cuda, dtype)
+    ctx = DistContext(device=cuda)
+    engine.clear_step_cache()
+    eager = _serve(params, cfg, cuda, eager=True)
+    assert engine.step_cache_info()["graphs"] == 0
+    assert _serve(params, cfg, cuda, eager=False) == eager
+    # decode, prefill at 16 and 8 tokens, extend at 16 and 4
+    assert engine.step_cache_info()["graphs"] == 5
+    engine.clear_step_cache()
+    step = engine.get_decode_step(cfg, ctx)
+    a = engine.init_serve_cache(params, cfg, 2, 80)
+    b = engine.init_serve_cache(params, cfg, 2, 80)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for _ in range(3):              # the capturing call, then two replays
+        tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen).to(cuda)
+        got, a = step(params, a, tok)
+        want, b = step.eager(params, b, tok)
+        assert torch.equal(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(engine.leaves(a), engine.leaves(b)))
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_second_parameter_set_gets_its_own_graphs(cuda):
+    cfg, pa = _reduced(cuda, seed=0)
+    _, pb = _reduced(cuda, seed=1)
+    engine.clear_step_cache()
+    a = _serve(pa, cfg, cuda, eager=False)
+    graphs = engine.step_cache_info()["graphs"]
+    b = _serve(pb, cfg, cuda, eager=False)
+    assert engine.step_cache_info()["graphs"] == 2 * graphs
+    assert b == _serve(pb, cfg, cuda, eager=True) and b[0] != a[0]
+    # the graphs hold no reference to their weights
+    dead = weakref.ref(pa["embed"])
+    del pa
+    gc.collect()
+    assert dead() is None
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_launch_counts_hold_under_replay(cuda):
+    cfg, params = _reduced(cuda)
+    n_moe = transformer.num_moe_layers(cfg)
+    engine.clear_step_cache()
+    step = engine.get_decode_step(cfg, DistContext(device=cuda))
+    cache = engine.init_serve_cache(params, cfg, 2, 80)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+    before = (gm.grouped_swiglu.launches, gm.grouped_matmul.launches)
+    for _ in range(4):
+        step(params, cache, tok)
+    torch.cuda.synchronize()
+    assert step.captures == 1 and step.graphs() == 1
+    assert (gm.grouped_swiglu.launches - before[0],
+            gm.grouped_matmul.launches - before[1]) == (4 * n_moe, 4 * n_moe)
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_eager_steps_make_no_host_sync(cuda):
+    """What a graph cannot hold: a step that waits for the card."""
+    cfg, params = _reduced(cuda)
+    ctx = DistContext(device=cuda)
+    seg = torch.arange(24, device=cuda).reshape(2, 12)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = engine.get_prefill_fn(cfg, ctx, 80).eager(params, {"tokens": seg})
+        engine.get_extend_step(cfg, ctx).eager(params, cache, seg)
+        engine.get_decode_step(cfg, ctx).eager(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_a_capture_that_syncs_raises_and_runs_nothing_eagerly(cuda, monkeypatch):
+    cfg, params = _reduced(cuda)
+    ctx = DistContext(device=cuda)
+    unembed = transformer.unembed
+
+    def syncing(p, c, x):
+        float(x.sum())              # a host sync inside the step
+        return unembed(p, c, x)
+
+    engine.clear_step_cache()
+    step = engine.get_decode_step(cfg, ctx)
+    cache = engine.init_serve_cache(params, cfg, 2, 80)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+    monkeypatch.setattr(transformer, "unembed", syncing)
+    with pytest.raises(RuntimeError, match="captur"):
+        step(params, cache, tok)
+    assert step.graphs() == 0 and step.captures == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()        # the card is still usable
+    logits, _ = step(params, cache, tok)
+    assert step.graphs() == 1 and bool(torch.isfinite(logits).all())
+    engine.clear_step_cache()
 
 
 # -- any machine ------------------------------------------------------------
