@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               the shapes its path gives it (serving: the grouped kernels;
               training: dispatch, ragged matmul at its three layouts and
               SwiGLU, fused MoE, the expert weights' gradient written and
-              added into a buffer; attention: flash attention at
+              added into a buffer, each also at an EP rank's layout: R
+              4608 rows from 2 source blocks with -1 gaps, 4 local
+              experts; attention: flash attention at
               Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
               plain version, a one-call PyTorch yardstick where there is
               one, and the card's bound.  Times are device times (CUDA
@@ -54,10 +56,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
               fused_moe must not launch.  The same profile and peaks (Eq. 2
               with the dispatch buffer's term).
-8. check   -- the reduced Mixtral config in fp32 on the card (TF32 off for
+8. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
+              card over gloo (started as torchrun starts them): the same
+              model, batch and steps, each rank holding 4 of the 8 experts
+              of each layer and one of the two sequences, on the fused leg,
+              then the ragged leg through Trainer.  Each rank reports its
+              log, schedules, peak against MACT's per-rank model, forward +
+              backward peaks, exchanges and their time on gloo, and kernel
+              launches; the phase fails on a non-finite loss, ranks that
+              disagree, a kernel of a leg that did not launch on a rank,
+              (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
+9. check   -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
-              steps on each leg must give the same schedules and losses.
+              steps on each leg must give the same schedules and losses, at
+              one peer and on a 2x2 mesh (4 gloo ranks on the card against
+              4 on the CPU).
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -376,6 +390,30 @@ def _routed_chunk(gen, dev):
     return up, plan, R
 
 
+def _ep_rank_layout(gen, dev):
+    """The received layout of rank 0 of the EP phase's 1 x 2 mesh at MACT's
+    (2, 2): each of P = 2 ranks routes a t_c = 1024-token chunk over 8
+    experts and sends rank 0 a cap_send = 2048-row block (its rows for
+    experts 0-3, -1 past them); rank 0's E_local = 4 experts get the
+    ragged plan over R = P cap_send + E_local bm rows.  Returns (plan,
+    rows received, R, E_local, rank 0's own send slots (t_c, k) into its
+    P cap_send send and return rows)."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    P, t_c = EP_MESH[1], T_CHUNK // 2
+    e_local, cap = E // P, t_c * min(TOP_K, E // P)
+    plans = []
+    for _ in range(P):
+        scores = torch.rand((t_c, E), generator=gen, device=dev)
+        ids = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :TOP_K]
+        plans.append(dsp.make_unified_plan(ids.to(torch.int32), E, P, cap_send=cap))
+    counts = [up.counts[0] for up in plans]
+    recv_cnt = torch.stack(counts)                       # (P, E_local) for rank 0
+    R = -(-(P * cap + e_local * BLOCK_M) // BLOCK_M) * BLOCK_M
+    plan = dsp.recv_ragged_plan(recv_cnt, dsp.eids_from_counts(recv_cnt, cap), R, BLOCK_M)
+    return plan, P * cap, R, e_local, plans[0].send_slots
+
+
 def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -505,6 +543,50 @@ def train_kernels_phase() -> dict:
             el * (2 * rows * D_MODEL + 3 * used * D_MODEL * D_FF),
             3 * 2 * live * D_MODEL * D_FF, 1e-4)],
     }
+    # the EP path's layouts (phase "train (EP, 2 ranks)"): rank 0's received
+    # rows from 2 source blocks with -1 gaps, 4 local experts' weights
+    ep_plan, ep_rows, ep_R, ep_e, ep_send = _ep_rank_layout(gen, dev)
+    ep_live = int(ep_plan.total_rows)
+    ep_used = torch.unique(ep_plan.block_to_expert[:ep_live // BLOCK_M]).numel()
+    ep_pos = invert_slots(ep_plan.slots, ep_R)
+    ep_src = torch.where(ep_pos >= 0, ep_pos, -1).to(torch.int32)
+    ep_read = int(((ep_src >= 0) & (torch.arange(ep_R, device=dev) < ep_live)).sum())
+    ep_x = randn((ep_rows, D_MODEL))
+    ep_buf = ref.scatter_rows_ref(ep_x, ep_src, ep_plan.total_rows)
+    ep_w = (w1[:ep_e], w3[:ep_e], w2[:ep_e])
+    ep_b2e, ep_total = ep_plan.block_to_expert, ep_plan.total_rows
+    ep_label = f"EP rank: {ep_read} of {ep_rows} received rows live, R={ep_R}, E_local={ep_e}"
+    cases["scatter_rows"].append((
+        f"{ep_label} (receive dispatch)", dc.scatter_rows,
+        ref.scatter_rows_ref, (ep_x, ep_src, ep_total), None,
+        el * (ep_read + ep_R) * D_MODEL + 4 * ep_R, 0, 0.0))
+    ep_t = ep_send.shape[0]
+    cases["gather_combine"].append((
+        f"EP rank: T={ep_t} K={TOP_K} from {ep_rows} returned rows d={D_MODEL} "
+        f"(EP combine)", dc.gather_combine, ref.gather_combine_ref,
+        (ep_x, ep_send, weights[:ep_t]),
+        lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
+                                               per_sample_weights=w),
+        el * (ep_t * TOP_K + ep_t) * D_MODEL, 2 * ep_t * TOP_K * D_MODEL, 1e-6))
+    cases["ragged_swiglu"].append((
+        ep_label, ragged_swiglu,
+        lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
+        (ep_buf, ep_w[0], ep_w[1], ep_b2e, ep_total, BLOCK_M), None,
+        el * (ep_live * D_MODEL + 2 * ep_used * D_MODEL * D_FF + ep_R * D_FF),
+        2 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
+    cases["ragged_matmul"].append((
+        f"{ep_label}, @ w1", ragged_matmul,
+        lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+        (ep_buf, ep_w[0], ep_b2e, ep_total, BLOCK_M), None,
+        el * (ep_live * D_MODEL + ep_used * D_MODEL * D_FF + ep_R * D_FF),
+        2 * ep_live * D_MODEL * D_FF, 1e-4))
+    cases["fused_moe"].append((
+        ep_label, fused_moe,
+        lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
+            x, a, b, c, src, ws, bb, tot),
+        (ep_x, *ep_w, ep_src, torch.ones(ep_R, device=dev), ep_total, ep_b2e), None,
+        el * (2 * ep_rows * D_MODEL + 3 * ep_used * D_MODEL * D_FF),
+        3 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
     replaces = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
                 "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
                 "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
@@ -579,10 +661,18 @@ def train_kernels_phase() -> dict:
             **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
-    del w1, w3, w2, x_rows, x_chunk, wrow
+    del w1, w3, w2, x_rows, x_chunk, wrow, ep_x, ep_w
     torch.cuda.empty_cache()
     entries["segment_outer"] = weight_grad_kernel(buf, h, b2e, total, live, offs, gen)
     del buf, h
+    torch.cuda.empty_cache()
+    ep_h = randn((ep_R, D_FF)) * (torch.arange(ep_R, device=dev) < ep_live)[:, None]
+    ep_offs = (torch.bincount(ep_b2e[:ep_live // BLOCK_M].long(), minlength=ep_e)
+               .cumsum(0) * BLOCK_M).to(torch.int32)
+    entries["segment_outer"]["shapes"] += weight_grad_kernel(
+        ep_buf, ep_h, ep_b2e, ep_total, ep_live, ep_offs, gen, n_experts=ep_e,
+        tag=f"{ep_label}: ")["shapes"]
+    del ep_buf, ep_h
     torch.cuda.empty_cache()
     return entries
 
@@ -604,14 +694,16 @@ def _wgrad_close(got, want, s=None) -> bool:
     return bool((err <= bound).all())
 
 
-def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen) -> dict:
+def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen, n_experts: int = E,
+                       tag: str = "") -> dict:
     """The expert weights' gradient (``segment_outer``) at the path's three
     calls per chunk, dw1 / dw3 = bufᵀ @ dh (E, d, f) and dw2 = aᵀ @ g_buf
     (E, f, d), written (a layer's first chunk) and added into the buffer
     (every later one): checked against the plain version in fp32 and bf16,
     relaunched, and timed beside the plain version, its bound and
     ``torch._grouped_mm``'s 2-D x 2-D form (groups along the rows) where
-    this PyTorch has it.  Returns the kernel's entry."""
+    this PyTorch has it.  ``n_experts`` weight slices, ``tag`` before each
+    label.  Returns the kernel's entry."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.weight_grad import segment_outer
@@ -624,9 +716,9 @@ def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen) -> dict:
     el = 2
     shapes = []
     # (label, a, b, out (E, K, N), accumulate)
-    cases = [("dw1 = bufᵀ @ dh1, written", buf, h, (E, D_MODEL, D_FF), False),
-             ("dw1 = bufᵀ @ dh1, added", buf, h, (E, D_MODEL, D_FF), True),
-             ("dw2 = aᵀ @ g_buf, added", h, g_buf, (E, D_FF, D_MODEL), True)]
+    cases = [(tag + "dw1 = bufᵀ @ dh1, written", buf, h, (n_experts, D_MODEL, D_FF), False),
+             (tag + "dw1 = bufᵀ @ dh1, added", buf, h, (n_experts, D_MODEL, D_FF), True),
+             (tag + "dw2 = aᵀ @ g_buf, added", h, g_buf, (n_experts, D_FF, D_MODEL), True)]
     for label, a32, b32, oshape, acc in cases:
         K, N = oshape[1], oshape[2]
         # on the path the buffer holds an earlier chunk's gradient, of the new
@@ -692,13 +784,13 @@ def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen) -> dict:
                     lambda: grouped_mm(a[:live].T, b[:live], offs=offs), 5)
         # the live rows of a and b read once, the output written once (and,
         # adding, read once); the products over the live rows
-        nbytes = el * (live * (K + N) + (2 if acc else 1) * E * K * N)
+        nbytes = el * (live * (K + N) + (2 if acc else 1) * n_experts * K * N)
         bms, by = _bound(nbytes, 2 * live * K * N)
         row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32, "ms": ms,
                "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": lib_ms}
         shapes.append(row)
-        print(f"segment_outer {label} (R={R}, {live} live, E={E}, K={K}, N={N}): ok err "
+        print(f"segment_outer {label} (R={R}, {live} live, E={n_experts}, K={K}, N={N}): ok err "
               f"bf16 {errb:.3e} f32 {err32:.3e} | device ms: kernel {ms:.4f}, plain "
               f"{plain_ms:.4f}{plain_note}, library {_fmt(lib_ms)}{lib_note}"
               f"{'' if lib_err is None else f' (err {lib_err:.3e})'}{blind} | host ms per call: "
@@ -879,18 +971,19 @@ def report_training(trainer, wall: float, launches: dict, steps: int) -> dict:
     return report
 
 
-def fwd_bwd_peaks(trainer, state) -> None:
+def fwd_bwd_peaks(trainer, state, who: str = "") -> tuple:
     """The peak of one forward + backward (no optimizer) above what is
     already allocated, at MACT's (chunks, depth), at (2, 1) and at (1, 1),
     beside MACT's modeled activation bytes for the trainer's leg (Eq. 2;
-    fused=False keeps the dispatch buffer's 2h term).  FCDA exists to lower
-    the peak: two sequential chunks above one chunk fails the run."""
+    fused=False keeps the dispatch buffer's 2h term), on this rank's rows of
+    the step's batch.  Returns {schedule: peak bytes} and the card's memory
+    in use (all processes) just after the last backward."""
     import torch
     from repro_torch.optim.adamw import param_list
     from repro_torch.training.step import loss_fn
 
     s_pp = trainer.mact.history[-1]["s_pp"]
-    batch = {k: torch.as_tensor(v, device="cuda")
+    batch = {k: torch.as_tensor(v[trainer._rows], device=trainer.ctx.device)
              for k, v in trainer.data.batch_at(0).items()}
     leaves = param_list(state.params)
     schedules = dict.fromkeys(((trainer.log[-1]["chunks"], trainer.log[-1]["pipeline"]),
@@ -907,18 +1000,25 @@ def fwd_bwd_peaks(trainer, state) -> None:
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
+        free, total = torch.cuda.mem_get_info()
         grad_bytes = sum(g.numel() * g.element_size() for g in grads if g is not None)
         peaks[chunks, depth] = peak
         del loss, grads
-        print(f"forward + backward at (chunks {chunks}, depth {depth}), fused="
+        print(f"{who}forward + backward at (chunks {chunks}, depth {depth}), fused="
               f"{trainer.mact.fused}: peak {peak / 1e9:.3f} GB above the "
               f"{base / 1e9:.2f} GB allocated, of which the bf16 gradients "
               f"{grad_bytes / 1e9:.3f} GB; the rest {(peak - grad_bytes) / 1e9:.3f} GB "
               f"against MACT's modeled activations {modeled / 1e9:.3f} GB "
               f"(s'' {s_pp:.0f})", flush=True)
+    return peaks, total - free
+
+
+def check_peaks(peaks: dict, who: str = "") -> None:
+    """FCDA exists to lower the peak: two sequential chunks above one
+    chunk's fails the run."""
     if peaks[2, 1] > peaks[1, 1]:
-        raise SystemExit(f"two sequential chunks raise the forward + backward peak: "
-                         f"{peaks[2, 1] / 1e9:.3f} GB at (2, 1) against "
+        raise SystemExit(f"{who}two sequential chunks raise the forward + backward "
+                         f"peak: {peaks[2, 1] / 1e9:.3f} GB at (2, 1) against "
                          f"{peaks[1, 1] / 1e9:.3f} GB at (1, 1)")
 
 
@@ -946,11 +1046,12 @@ def train_phase() -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     wall = time.perf_counter() - t0
     report_training(trainer, wall, launches, 4)
+    ce = trainer.log[0]["ce"]
     profile_step(trainer, state)
-    fwd_bwd_peaks(trainer, state)
+    check_peaks(fwd_bwd_peaks(trainer, state)[0])
     del trainer, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, ce
 
 
 def train_ragged_phase() -> dict:
@@ -991,13 +1092,280 @@ def train_ragged_phase() -> dict:
         raise SystemExit(f"fused_moe launched {fused_moe.launches} times on the "
                          f"ragged leg")
     profile_step(trainer, state)
-
-    fwd_bwd_peaks(trainer, state)
+    check_peaks(fwd_bwd_peaks(trainer, state)[0])
     print(f"MACT on the ragged leg: s'max {report['s_prime_max']:.0f}, schedule "
           f"(chunks {trainer.log[-1]['chunks']}, depth {trainer.log[-1]['pipeline']})",
           flush=True)
     del trainer, state
     torch.cuda.empty_cache()
+    return launches
+
+
+# the EP phase: the same model, steps and batch as the train phase on a 1 x 2
+# mesh, both ranks on the one card over gloo (each rank: 4 of the 8 experts
+# of each layer, one of the two 2048-token sequences)
+EP_MESH, EP_RANKS = (1, 2), 2
+EP_LABEL = "2 ranks time-sharing one card, exchange staged through the host by gloo"
+EP_TIMEOUT_S = 600
+# the kernels each leg must launch on every rank
+EP_KERNELS = {"fused": ("scatter_rows", "gather_combine", "ragged_matmul", "fused_moe",
+                        "segment_outer"),
+              "ragged": ("scatter_rows", "gather_combine", "ragged_swiglu",
+                         "ragged_matmul", "segment_outer")}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _exchange_ms(trainer, mesh) -> tuple:
+    """(rows per peer block, ms) of one dispatch-sized exchange, bf16, at
+    the trainer's last schedule: cap_send = t_c min(k, E_local) rows."""
+    import torch
+    cfg = trainer.cfg
+    tokens = (trainer._rows.stop - trainer._rows.start) * trainer.seq_len
+    e_local = cfg.moe.num_experts // mesh.peers
+    cap = tokens // trainer.log[-1]["chunks"] * min(cfg.moe.top_k, e_local)
+    x = torch.randn((mesh.peers, cap, cfg.d_model), device=trainer.ctx.device,
+                    dtype=torch.bfloat16)
+    for _ in range(2):
+        mesh.all_to_all(x)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mesh.all_to_all(x)
+    torch.cuda.synchronize()
+    return cap, 1e3 * (time.perf_counter() - t0) / 10
+
+
+def _split_steps(spans: list, events: list) -> list:
+    """Each step's wall seconds, and the host seconds, calls and bytes of
+    its exchanges and all-reduces."""
+    out = []
+    for t0, t1 in spans:
+        step = {"wall": t1 - t0}
+        for kind in ("exchange", "all_reduce"):
+            mine = [e for e in events if e[2] == kind and t0 <= e[0] < t1]
+            step[kind] = {"s": sum(e[1] for e in mine), "calls": len(mine),
+                          "bytes": sum(e[3] for e in mine)}
+        out.append(step)
+    return out
+
+
+def _ep_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the EP phase, in a process of its own, started as
+    torchrun starts one: launch/train.py reads the world from the
+    environment.  Trains the fused leg through the entry point, then the
+    ragged leg through Trainer on the same mesh, and writes what it saw to
+    out_dir/rank<r>.json."""
+    import gc
+    import os
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(EP_RANKS),
+                      LOCAL_WORLD_SIZE=str(EP_RANKS), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels._cuda import wrappers
+    from repro_torch.launch import train
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # measurement only: the host time inside each collective that runs
+    # (launch/mesh.py skips a group of one rank), and each step's span, so
+    # each step splits into exchanges, all-reduces and the rest (gloo
+    # returns once the collective is done)
+    events, spans = [], []
+
+    def timed(kind, real):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            t = args[-1] if kind == "exchange" else args[0]
+            events.append((t0, time.perf_counter() - t0, kind,
+                           t.numel() * t.element_size()))
+            return out
+        return call
+
+    dist.all_to_all_single = timed("exchange", dist.all_to_all_single)
+    dist.all_reduce = timed("all_reduce", dist.all_reduce)
+    real_step = trainer_mod.make_train_step
+
+    def make_step(*args, **kw):
+        step = real_step(*args, **kw)
+
+        def run(state, batch):
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            float(out[1]["loss"])              # the trainer's own sync point
+            spans.append((t0, time.perf_counter()))
+            return out
+        return run
+
+    trainer_mod.make_train_step = make_step
+    rec = {"rank": rank}
+    try:
+        for leg in ("fused", "ragged"):
+            for fn in wrappers():
+                fn.launches = 0
+            events.clear()
+            spans.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if leg == "fused":
+                trainer, state = train.main(TRAIN_ARGS + ["--mesh", "x".join(
+                    map(str, EP_MESH))])
+                # the ragged leg: the same model, mesh and steps through Trainer
+                kw = {k: getattr(trainer, k) for k in ("seq_len", "global_batch", "lr",
+                                                       "seed", "dtype",
+                                                       "max_pipeline_depth")}
+                cfg = trainer.cfg
+                ctx = dataclasses.replace(trainer.ctx, moe_fused=False, moe_ragged=True)
+            else:
+                trainer = Trainer(cfg, ctx, **kw)
+                state = trainer.fit(RAGGED_STEPS)
+            mesh = trainer.ctx.mesh
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            free, total = torch.cuda.mem_get_info()
+            launches = {fn.__name__: fn.launches for fn in wrappers()}
+            s_pp = trainer.mact.history[-1]["s_pp"]
+            report = trainer.mact.memory_report(s_pp, trainer.log[-1]["chunks"],
+                                                trainer.log[-1]["pipeline"])
+            out = {"log": trainer.log, "chunks": trainer.chunk_trace,
+                   "pipeline": trainer.pipeline_trace, "wall_s": wall,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "modeled_bytes": report["total_gb"] * 2**30,
+                   "modeled_static_bytes": report["static_gb"] * 2**30,
+                   "card_in_use_after_steps": total - free,
+                   "launches": launches, "steps": _split_steps(spans, events),
+                   "par": [trainer.par.e, trainer.par.b], "d_model": cfg.d_model}
+            out["exchange_rows"], out["exchange_ms"] = _exchange_ms(trainer, mesh)
+            peaks, used = fwd_bwd_peaks(trainer, state, who=f"rank {rank} ({leg} leg): ")
+            out["peaks"] = {f"{c},{d}": v for (c, d), v in peaks.items()}
+            out["card_in_use_after_backward"] = used
+            rec[leg] = out
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(target, n: int, args: tuple, timeout: float) -> None:
+    """Start ``target(rank, *args)`` in n spawned processes (CUDA cannot be
+    forked) and wait for all of them; a rank that fails or hangs fails the
+    phase, and every rank still running is killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise SystemExit(f"ranks exited with {codes} (None: killed after {timeout:.0f} s)")
+
+
+def train_ep_phase(one_peer_ce: float) -> dict:
+    """Drive launch/train.py on a 1x2 mesh, 2 ranks on the one card over
+    gloo, on the fused leg, then the ragged leg through Trainer; returns
+    the path's launch counts, summed over ranks and legs."""
+    phase("train (EP, 2 ranks)")
+    import gc
+    import math
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"before spawning: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved); the card has "
+          f"{(total - free) / 1e9:.2f} of {total / 1e9:.2f} GB in use", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _run_ranks(_ep_rank, EP_RANKS, (_free_port(), tmp), EP_TIMEOUT_S)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(EP_RANKS)]
+    print(f"phase {time.perf_counter() - t0:.1f} s (rank start-up and weights included)",
+          flush=True)
+    launches, used = {}, []
+    for leg in ("fused", "ragged"):
+        recs = [r[leg] for r in ranks]
+        first = recs[0]
+        for step in first["log"]:
+            recv = step["recv_by_peer"]
+            busy = max(range(len(recv)), key=recv.__getitem__)
+            print(f"{leg} leg, step {step['step']}: loss {step['loss']:.6f} (ce "
+                  f"{step['ce']:.6f}, aux {step['aux']:.6f}), grad_norm "
+                  f"{step['grad_norm']:.4f}, schedule (chunks {step['chunks']}, depth "
+                  f"{step['pipeline']}), {step['time_s']:.3f} s, {step['tgs']:.1f} tokens/s "
+                  f"({EP_LABEL}); received token-slots: rank {busy} {recv[busy]:.0f} "
+                  f"(busier) against {', '.join(f'rank {j} {v:.0f}' for j, v in enumerate(recv) if j != busy)}; "
+                  f"drops {step['drops']:.0f}", flush=True)
+        for r, rec in enumerate(recs):
+            print(f"{leg} leg, rank {r}: Parallelism(e={rec['par'][0]}, b={rec['par'][1]}); "
+                  f"max_memory_allocated {rec['max_memory_allocated'] / 1e9:.2f} GB against "
+                  f"MACT's modeled per-rank {rec['modeled_bytes'] / 1e9:.2f} GB (static "
+                  f"{rec['modeled_static_bytes'] / 1e9:.2f}); forward + backward peaks "
+                  + ", ".join(f"({k}) {v / 1e9:.3f} GB" for k, v in rec["peaks"].items())
+                  + f"; one ({EP_MESH[1]}, {rec['exchange_rows']}, {rec['d_model']}) bf16 "
+                  f"exchange {rec['exchange_ms']:.2f} ms on gloo; launches "
+                  f"{ {k: n for k, n in rec['launches'].items() if n} }", flush=True)
+            for i, st in enumerate(rec["steps"], 1):
+                ex, ar = st["exchange"], st["all_reduce"]
+                print(f"  step {i}: wall {1e3 * st['wall']:.1f} ms = exchanges "
+                      f"{1e3 * ex['s']:.1f} ms ({ex['calls']} calls, "
+                      f"{ex['bytes'] / 1e6:.1f} MB) + all-reduces {1e3 * ar['s']:.1f} ms "
+                      f"({ar['calls']} calls, {ar['bytes'] / 1e6:.1f} MB) + the rest "
+                      f"{1e3 * (st['wall'] - ex['s'] - ar['s']):.1f} ms (host time inside "
+                      f"each call)", flush=True)
+            used += [rec["card_in_use_after_steps"], rec["card_in_use_after_backward"]]
+            for name, n in rec["launches"].items():
+                if n:
+                    launches[name] = launches.get(name, 0) + n
+        bad = [(r, s) for r, rec in enumerate(recs) for s in rec["log"]
+               if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+        if bad or any(len(rec["log"]) != 4 for rec in recs):
+            raise SystemExit(f"EP {leg} leg: non-finite losses or grad norms, or missing "
+                             f"steps: {bad}")
+        strip = lambda log: [{k: v for k, v in s.items() if k not in ("time_s", "tgs")}  # noqa: E731
+                             for s in log]
+        if any((rec["chunks"], rec["pipeline"], strip(rec["log"]))
+               != (first["chunks"], first["pipeline"], strip(first["log"]))
+               for rec in recs[1:]):
+            raise SystemExit(f"EP {leg} leg: the ranks' schedules or metrics differ")
+        for r, rec in enumerate(recs):
+            missing = [k for k in EP_KERNELS[leg] if not rec["launches"].get(k)]
+            if missing or (leg == "ragged" and rec["launches"].get("fused_moe")):
+                raise SystemExit(f"EP {leg} leg, rank {r}: kernels not launched {missing}, "
+                                 f"or fused_moe launched on the ragged leg")
+            check_peaks({tuple(map(int, k.split(","))): v for k, v in rec["peaks"].items()},
+                        who=f"EP {leg} leg, rank {r}: ")
+    ce = ranks[0]["fused"]["log"][0]["ce"]
+    print(f"step 1 ce: {ce:.6f} on 2 ranks against {one_peer_ce:.6f} at one peer, "
+          f"|diff| {abs(ce - one_peer_ce):.3e} (tolerance {TOL_BF16} relative)", flush=True)
+    if not abs(ce - one_peer_ce) <= TOL_BF16 * abs(one_peer_ce):
+        raise SystemExit("the 2-rank run's step-1 ce differs from the one-peer run's")
+    print(f"the card's memory in use at the busiest sample (both ranks, all processes): "
+          f"{max(used) / 1e9:.2f} GB", flush=True)
     return launches
 
 
@@ -1267,6 +1635,66 @@ def check_phase() -> None:
             raise SystemExit(f"the card disagrees with the CPU on the reduced training "
                              f"run of the {leg} leg (tolerance {tol})")
 
+    # the same on a 2x2 mesh: 4 gloo ranks on the card against 4 on the CPU
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            _run_ranks(_check_rank, 4, (f"file://{tmp}/store-{dev}", dev, tmp), 300)
+            runs[dev] = [json.loads(Path(tmp, f"{dev}{r}.json").read_text())
+                         for r in range(4)]
+    for leg in ("fused", "ragged"):
+        got = {dev: [rec[leg] for rec in recs] for dev, recs in runs.items()}
+        losses = {dev: recs[0]["losses"] for dev, recs in got.items()}
+        dloss = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        traces = {(tuple(r["chunks"]), tuple(r["pipeline"]))
+                  for recs in got.values() for r in recs}
+        same_ranks = all(r["losses"] == recs[0]["losses"] for recs in got.values()
+                         for r in recs)
+        print(f"reduced {cfg.name} fp32 on a 2x2 mesh, 2 training steps on the {leg} leg: "
+              f"losses card {losses['cuda']} cpu {losses['cpu']}, max |card - cpu| = "
+              f"{dloss:.3e}; schedules {sorted(traces)}; equal on every rank: "
+              f"{same_ranks}", flush=True)
+        tol = 1e-4 if leg == "fused" else 1e-5
+        if len(traces) != 1 or not same_ranks or not dloss <= tol:
+            raise SystemExit(f"the 2x2 mesh's reduced training run of the {leg} leg: the "
+                             f"card disagrees with the CPU (tolerance {tol}), or the "
+                             f"ranks disagree")
+
+
+def _check_rank(rank: int, store: str, device: str, out_dir: str) -> None:
+    """One rank of check_phase's 2x2 mesh: 2 reduced fp32 training steps on
+    each leg from the same weights as the one-peer check, on ``device``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import DistContext
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.training.step import make_train_state
+    from repro_torch.training.trainer import Trainer
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dev = mesh_lib.init_world(rank, 4, store, device)
+        mesh = mesh_lib.make_host_mesh((2, 2))
+        cfg = get_config("mixtral-8x7b").reduced()
+        rec = {}
+        for leg in ("fused", "ragged"):
+            ctx = DistContext(device=dev, moe_strategy="ep_shardmap", mesh=mesh,
+                              moe_fused=leg == "fused", moe_ragged=leg == "ragged")
+            params = transformer.init_params(cfg, device="cpu", seed=2, mesh=mesh)
+            trainer = Trainer(cfg, ctx, seq_len=128, global_batch=4, lr=1e-3)
+            trainer.fit(2, make_train_state(_to(params, dev)))
+            rec[leg] = {"losses": [r["loss"] for r in trainer.log],
+                        "chunks": trainer.chunk_trace, "pipeline": trainer.pipeline_trace}
+        Path(out_dir, f"{device}{rank}.json").write_text(json.dumps(rec))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
 
 def _to(tree, device):
     if isinstance(tree, dict):
@@ -1296,8 +1724,9 @@ def main() -> int:
     paths = {"serve": launches}
     profile_phase(served)
     del served
-    paths["train (fused leg)"] = train_phase()
+    paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
+    paths["train (EP, 2 ranks)"] = train_ep_phase(ce)
     check_phase()
     for path, launches in paths.items():
         for name, n in launches.items():

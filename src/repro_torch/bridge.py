@@ -44,13 +44,22 @@ def _to_torch(device):
     return lambda a: torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(np_tree: dict, cfg: ModelConfig, device) -> dict:
-    """The JAX package's ``init_params`` tree (as numpy) -> the port's params."""
+def params_from_jax(np_tree: dict, cfg: ModelConfig, device, mesh=None) -> dict:
+    """The JAX package's ``init_params`` tree (as numpy) -> the port's params.
+    Under a mesh (``launch/mesh.py``) each MoE layer's expert weights are cut
+    to this rank's E / P experts, as ``P(ep_axis, None, None)`` cuts them;
+    the dense weights are copied whole."""
     conv = _to_torch(device)
     params = {k: _tree_map(conv, np_tree[k])
               for k in ("embed", "final_norm", "head") if k in np_tree}
     params["layers"] = [_tree_map(conv, layer)
                         for layer in layers_in_order(np_tree, cfg)]
+    if mesh is not None:
+        for layer in params["layers"]:
+            ffn = layer.get("ffn", {})
+            if "router" in ffn:
+                for name in ("w1", "w3", "w2"):
+                    ffn[name] = mesh.local_experts(ffn[name]).clone()
     return params
 
 

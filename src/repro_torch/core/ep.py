@@ -11,11 +11,23 @@ peer: cap_send = T_chunk * min(K, E_local)) and the local expert buffer the
 group worst case (cap_recv = P * T_chunk).  Unchunked, that is the paper's
 s' -> e*s blow-up by construction; FCDA divides both by the chunk count.
 
-The EP group is ``ctx.ep_group``.  This port runs one peer: with no group
-the exchange of a one-peer group is the identity, exactly what
-``lax.all_to_all`` over a size-1 mesh axis is in the JAX package.  The
-exchange across ranks (``torch.distributed.all_to_all_single`` over NCCL)
-is not ported yet, and neither is expert placement.
+Across ranks the EP group is ``mesh.ep_group`` (``launch/mesh.py``): each
+of its P ranks holds E / P experts and exchanges dim 0's P blocks of the
+send and return buffers with ``all_to_all_single`` (``_all_to_all``, whose
+backward is the same exchange of the gradient), and the counts matrix
+through the same exchange without autograd.  The blocks keep the JAX
+package's fixed worst-case size, cap_send rows per peer, padded: Eq. 2
+charges exactly these buffers.  ``mesh=None`` is one peer, where the
+exchange is the identity, as ``lax.all_to_all`` over a size-1 axis is.
+
+Each rank routes its own tokens; the layer's stats are global, as the
+reference's ``pmean``/``psum`` over every mesh axis make them: ``load`` and
+``drops`` summed over the world, ``aux_loss`` the mean over the world of
+each rank's own aux.  That mean is a replicated value whose backward passes
+each rank's gradient through unchanged (``_Replicated``), so when a train
+step sums the dense gradients over the ranks, each rank's aux term counts
+once: the router's gradient is the gradient of the mean.  Expert placement
+is not ported yet.
 
 The local expert leg is one of:
 
@@ -50,32 +62,70 @@ from repro_torch.kernels.ops import moe_ffn as fused_moe_leg
 RAGGED_BLOCK = 128
 
 
-def _peers(ep_group) -> int:
-    if ep_group is not None:
-        raise NotImplementedError(
-            "EP across ranks (all_to_all over an EP process group) is not "
-            "ported yet; pass ep_group=None for EP at one peer")
-    return 1
+def _peers(mesh) -> int:
+    """The EP group's size: 1 without a mesh."""
+    return 1 if mesh is None else mesh.peers
 
 
-def _all_to_all(t: torch.Tensor, peers: int) -> torch.Tensor:
+class _AllToAll(torch.autograd.Function):
+    """The exchange of dim 0's peer blocks over the EP group.  It is its own
+    transpose: the backward sends each block's gradient back where the block
+    came from with the same exchange."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g), None
+
+
+def _all_to_all(t: torch.Tensor, mesh) -> torch.Tensor:
     """The exchange of dim 0's peer blocks; the identity at one peer."""
-    assert peers == 1
-    return t
+    if _peers(mesh) == 1:
+        return t
+    return _AllToAll.apply(t, mesh)
+
+
+class _Replicated(torch.autograd.Function):
+    """The sum of ``t`` over the world; the backward passes the gradient
+    through unchanged, so each rank's own term gets its gradient once."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _world_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the world of each rank's ``t``, replicated."""
+    return t if mesh is None else _Replicated.apply(t, mesh) / mesh.size
+
+
+def _world_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the world of a statistic without a gradient."""
+    return t if mesh is None else mesh.all_reduce_(t.detach().clone())
 
 
 def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
-               ep_group=None, chunks: int = 1, remat: bool = True,
+               mesh=None, chunks: int = 1, remat: bool = True,
                ragged: bool = False, pipeline: int = 1,
                ragged_block: int = RAGGED_BLOCK, fused: bool = False,
                placement=None):
-    """x: (B, S, d) -> (y, stats).  ``pipeline`` is the FCDA schedule depth:
+    """x: (B, S, d), this rank's tokens -> (y, stats).  ``params`` holds
+    this rank's E / P experts.  ``pipeline`` is the FCDA schedule depth:
     1 = sequential loop, >= 2 = waves of that many chunks.  Stats as the
-    JAX package's EP path: aux_loss summed over chunks (the caller divides
-    by the chunk count), load and drops summed."""
+    JAX package's EP path: aux_loss the world's mean, summed over chunks
+    (the caller divides by the chunk count); load and drops summed over the
+    world and the chunks."""
     if placement is not None:
         raise NotImplementedError("expert placement is not ported yet")
-    peers = _peers(ep_group)
+    peers = _peers(mesh)
     E = moe_cfg.num_experts
     e_local = E // peers
     B, S, d = x.shape
@@ -104,8 +154,9 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
             cap_send = dsp.balanced_capacity(t_c, k, peers, moe_cfg.capacity_factor)
         uplan = dsp.make_unified_plan(r.expert_idx, E, peers, cap_send=cap_send)
         send = dispatch_rows(xc, uplan.send_slots, peers * cap_send)
-        recv = _all_to_all(send.reshape(peers, cap_send, d), peers)
-        recv_cnt = _all_to_all(uplan.counts, peers)
+        recv = _all_to_all(send.reshape(peers, cap_send, d), mesh)
+        recv_cnt = (uplan.counts if peers == 1
+                    else mesh.all_to_all(uplan.counts))
         return {"recv": recv, "recv_cnt": recv_cnt,
                 "send_slots": uplan.send_slots, "weights": r.weights,
                 "aux_loss": r.aux_loss, "load": r.load, "drops_send": uplan.drops}
@@ -155,12 +206,12 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
         """The return exchange, then the router-weighted combine."""
         back = st["back"]
         _, cap_send, _ = back.shape
-        recv_back = _all_to_all(back, peers)
+        recv_back = _all_to_all(back, mesh)
         y = combine_rows(recv_back.reshape(peers * cap_send, d), st["send_slots"],
                          st["weights"])
-        stats = {"aux_loss": st["aux_loss"],
-                 "load": st["load"].float(),
-                 "drops": st["drops"].float()}
+        stats = {"aux_loss": _world_mean(st["aux_loss"], mesh),
+                 "load": _world_sum(st["load"].float(), mesh),
+                 "drops": _world_sum(st["drops"].float(), mesh)}
         return y, stats
 
     stages = ChunkStages(stage_dispatch, stage_compute, stage_combine)

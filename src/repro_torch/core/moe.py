@@ -11,9 +11,16 @@ Strategies, as in the JAX package:
   combine, each chunk recomputed in the backward (Eq. 7).  With
   ``moe_fused`` the expert leg is the fused kernel, with ``moe_ragged`` the
   three-launch ragged leg over a real dispatch buffer; these are the paths
-  that train.  It runs at one EP peer (``ep_group=None``).
+  that train.  Under a mesh (``DistContext.mesh``, ``launch/mesh.py``) each
+  rank holds E / P experts and its own whole sequences, the exchange runs
+  over its EP group, and the layer's stats are global (core/ep.py); with
+  ``mesh=None`` it runs at one EP peer.
 * ``dense`` -- every expert on every token, masked combine: the tests'
   numerical oracle.
+
+Under a multi-rank mesh only ``ep_shardmap`` runs: no rank holds all the
+experts, and the port has no GSPMD to shard the others (a deliberate
+difference from the JAX package, whose ``tp_gspmd`` runs under any mesh).
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from repro_torch.kernels.ref import expert_ffn_ref
 class DistContext:
     """How the current step runs; plumbed through the model."""
     device: torch.device = torch.device("cuda")
-    ep_group: Optional[object] = None      # EP process group; None = one peer
+    mesh: Optional[object] = None          # launch/mesh.py::Mesh; None = one peer
     moe_chunks: int = 1                    # FCDA chunk count (MACT-selected)
     pipeline_chunks: int = 1               # FCDA schedule depth: 1 = sequential
                                            # loop, >= 2 = waves of that many
@@ -52,15 +59,40 @@ class DistContext:
 _STRATEGIES = ("tp_gspmd", "ep_shardmap", "dense")
 
 
-def resolve_strategy(cfg: MoEConfig, ctx: DistContext) -> str:
-    """The strategy asked for by the context (else the config).  "auto"
-    resolves to the local per-row path, as the JAX package resolves it
-    without a mesh; "ep_shardmap" is taken when asked for."""
+def _divides(cfg: MoEConfig, x_shape: tuple, ctx: DistContext) -> bool:
+    """Whether this rank's (B, S) tokens and the experts split as the EP
+    path needs: E over the EP group, the tokens into the FCDA chunks."""
+    tokens = x_shape[0] * x_shape[1]
+    return (cfg.num_experts % ctx.mesh.peers == 0
+            and tokens % ctx.moe_chunks == 0 and tokens >= ctx.moe_chunks)
+
+
+def resolve_strategy(cfg: MoEConfig, ctx: DistContext,
+                     x_shape: Optional[tuple] = None) -> str:
+    """The strategy asked for by the context (else the config), as the JAX
+    package resolves it.  "auto" is the local per-row path without a mesh,
+    and ``ep_shardmap`` under one when this rank's ``x_shape`` divides (or
+    is not given).  An explicit ``ep_shardmap`` that does not divide raises,
+    and so does any other strategy under a multi-rank mesh."""
     want = ctx.moe_strategy if ctx.moe_strategy != "auto" else cfg.strategy
-    if want == "auto":
-        return "tp_gspmd"
-    if want not in _STRATEGIES:
+    if want != "auto" and want not in _STRATEGIES:
         raise ValueError(f"unknown MoE strategy {want!r}; one of {_STRATEGIES}")
+    mesh = ctx.mesh
+    if mesh is None:
+        return "tp_gspmd" if want == "auto" else want
+    ok = x_shape is None or _divides(cfg, x_shape, ctx)
+    if want == "auto":
+        want = "ep_shardmap" if ok else "tp_gspmd"
+    if want == "ep_shardmap" and not ok:
+        raise ValueError(
+            f"ep_shardmap requested but E={cfg.num_experts}, B={x_shape[0]}, "
+            f"S={x_shape[1]} do not divide mesh axes "
+            f"{dict(zip(mesh.axis_names, mesh.shape))}")
+    if want != "ep_shardmap" and mesh.size > 1:
+        raise ValueError(
+            f"the {want} strategy does not run under a {mesh.shape[0]}x"
+            f"{mesh.shape[1]} mesh: no rank holds all the experts; use "
+            f"ep_shardmap")
     return want
 
 
@@ -137,15 +169,16 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, ctx: DistContext):
     Stats contract, as in the JAX package:
 
     * ``load``  -- (E,) float32, the total routed token-slot demand per
-      expert (pre-capacity-clip), summed over batch rows and chunks.
+      expert (pre-capacity-clip), summed over batch rows, chunks and ranks.
     * ``drops`` -- float32 scalar, the total token-slots dropped; exactly
       0.0 under ``capacity_mode="dropless"``.
     * ``aux_loss`` -- float32 scalar, the mean per-chunk Switch auxiliary
-      loss, averaged over chunks and batch rows.
+      loss, averaged over chunks and batch rows (EP: over chunks and
+      ranks, each rank's own aux on its own tokens).
     """
-    strategy = resolve_strategy(cfg, ctx)
+    strategy = resolve_strategy(cfg, ctx, x.shape)
     if strategy == "ep_shardmap":
-        y, stats = moe_ffn_ep(params, x, cfg, ep_group=ctx.ep_group,
+        y, stats = moe_ffn_ep(params, x, cfg, mesh=ctx.mesh,
                               chunks=ctx.moe_chunks, remat=ctx.remat_chunks,
                               ragged=ctx.moe_ragged, pipeline=ctx.pipeline_chunks,
                               ragged_block=ctx.ragged_block, fused=ctx.moe_fused)

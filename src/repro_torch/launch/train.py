@@ -7,6 +7,12 @@
   # the reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --smoke --device cpu --ep --fused --steps 3
+  # EP across 2 ranks (each holds 4 of the 8 experts), spawned by the
+  # launcher; under torchrun, drop --nproc and run
+  #   torchrun --nproc-per-node 2 -m repro_torch.launch.train ... --mesh 1x2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --layers 2 --ep --fused --steps 4 --seq-len 2048 --global-batch 2 \
+      --mesh 1x2 --nproc 2
 
 Training on the card runs the EP strategy with the fused expert leg
 (``--ep --fused``).  The EP strategy's ragged leg trains too, through
@@ -15,6 +21,13 @@ the JAX launcher has no flag for it, and neither has this one.  The local
 path and the EP capacity layout run the grouped kernels, which have no
 backward: on the card, training on them raises, as training them through
 Pallas raises in the JAX package.
+
+``--mesh DxP`` runs D x P ranks (``launch/mesh.py``): the world comes from
+the environment under ``torchrun``, or ``--nproc D*P`` spawns the ranks
+itself.  The backend is NCCL when every rank has a card of its own, gloo
+otherwise (several ranks on one card, or the CPU).  Rank 0 prints the log;
+every rank prints its schedule trace and, on a card, its own peak memory.
+``--mesh local`` (the default) and ``--mesh 1x1`` are one EP peer.
 """
 
 from __future__ import annotations
@@ -22,6 +35,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
+from pathlib import Path
+
+from repro_torch.launch import mesh as mesh_lib
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -52,22 +69,73 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-mact", action="store_true")
     ap.add_argument("--remat", default=None, choices=["none", "full", "memfine"])
     ap.add_argument("--ep", action="store_true",
-                    help="the EP strategy at one peer (the path that trains)")
+                    help="the EP strategy (the path that trains): at one peer, "
+                         "or across the ranks of --mesh")
     ap.add_argument("--fused", action="store_true",
                     help="the fused expert leg over the ragged layout "
                          "(kernels/fused_moe.py); MACT plans with the reduced "
                          "Eq. 2 term; needs --ep")
-    ap.add_argument("--log-json", default=None)
+    ap.add_argument("--mesh", default="local",
+                    help="local (one EP peer) or DxP: D data x P EP ranks, from "
+                         "torchrun's environment or spawned with --nproc")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="spawn this many ranks (D*P of --mesh) instead of "
+                         "reading them from torchrun's environment")
+    ap.add_argument("--log-json", default=None,
+                    help="write the log here (under a mesh, one file per rank: "
+                         "NAME.rankR.json)")
     args = ap.parse_args(argv)
     if args.fused and not args.ep:
         ap.error("--fused needs --ep (the fused leg is the EP strategy's)")
+    try:
+        args.mesh_shape = mesh_lib.parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.mesh_shape is not None and not args.ep:
+        ap.error("--mesh needs --ep: only the EP strategy runs across ranks")
+    ranks = 1 if args.mesh_shape is None else args.mesh_shape[0] * args.mesh_shape[1]
+    if args.nproc and args.nproc != ranks:
+        ap.error(f"--nproc {args.nproc} is not the rank count of --mesh {args.mesh}")
     return args
 
 
 def main(argv=None):
     """Parse ``argv`` and train; returns (trainer, final state) to an
-    in-process caller."""
+    in-process caller, None after spawning the ranks (``--nproc``)."""
     args = parse_args(argv)
+    if args.nproc > 1:
+        _spawn(args)
+        return None
+    return train(args)
+
+
+def _spawn(args) -> None:
+    """Run ``args.nproc`` ranks with the spawn start method (CUDA cannot be
+    forked), joined through a file store; raises if a rank fails."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank_main, args=(args, f"file://{tmp}/store"),
+                           nprocs=args.nproc, start_method="spawn")
+
+
+def _rank_main(rank: int, args, init_method: str) -> None:
+    import os
+
+    import torch
+    import torch.distributed as dist
+    # the ranks share the host's cores: a thread per core in each of them
+    # oversubscribes the cores many times over
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nproc))
+    try:
+        train(args, rank=rank, init_method=init_method)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train(args, rank=None, init_method=None):
+    """Train as ``args`` say; under a mesh this process is one rank (of
+    ``torchrun`` when ``rank`` is None)."""
     import torch
 
     from repro_torch import resolve_device
@@ -76,6 +144,13 @@ def main(argv=None):
     from repro_torch.training.trainer import Trainer
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_shape is not None:
+        D, P = args.mesh_shape
+        device = (mesh_lib.init_world_from_env(device) if rank is None else
+                  mesh_lib.init_world(rank, D * P, init_method, device))
+        mesh = mesh_lib.make_host_mesh(args.mesh_shape)
+    lead = mesh is None or mesh.rank == 0
     dtype = args.dtype or ("bfloat16" if device.type == "cuda" else "float32")
     cfg = get_config(args.arch)
     if args.smoke:
@@ -94,30 +169,38 @@ def main(argv=None):
     ctx = DistContext(device=device, moe_chunks=args.chunks,
                       pipeline_chunks=depth if args.no_mact else 1,
                       moe_strategy="ep_shardmap" if args.ep else "auto",
-                      moe_fused=args.fused)
+                      moe_fused=args.fused, mesh=mesh)
     trainer = Trainer(cfg, ctx, seq_len=args.seq_len,
                       global_batch=args.global_batch, lr=args.lr, seed=args.seed,
                       dtype=getattr(torch, dtype), use_mact=not args.no_mact,
                       max_pipeline_depth=depth)
-    print(f"training {cfg.name} ({cfg.num_layers} layers, {dtype}, {device}): "
-          f"seq {args.seq_len} x batch {args.global_batch}, "
-          f"{'EP at one peer' if args.ep else 'local path'}"
-          f"{', fused expert leg' if args.fused else ''}, "
-          f"MACT {'off' if args.no_mact else 'on'}", flush=True)
-    state = trainer.fit(args.steps, verbose=True)
+    ep = ("local path" if not args.ep else "EP at one peer" if mesh is None else
+          f"EP over a {mesh.shape[0]}x{mesh.shape[1]} mesh")
+    if lead:
+        print(f"training {cfg.name} ({cfg.num_layers} layers, {dtype}, {device}): "
+              f"seq {args.seq_len} x batch {args.global_batch}, {ep}"
+              f"{', fused expert leg' if args.fused else ''}, "
+              f"MACT {'off' if args.no_mact else 'on'}", flush=True)
+    state = trainer.fit(args.steps, verbose=lead)
+    who = "" if mesh is None else f"rank {mesh.rank}: "
     if trainer.log:
-        print(f"final loss {trainer.log[-1]['loss']:.4f} at step "
+        print(f"{who}final loss {trainer.log[-1]['loss']:.4f} at step "
               f"{trainer.log[-1]['step']}; chunk trace {trainer.chunk_trace[-8:]}; "
-              f"pipeline trace {trainer.pipeline_trace[-8:]}")
+              f"pipeline trace {trainer.pipeline_trace[-8:]}", flush=True)
     if device.type == "cuda":
-        print(f"peak device memory (max_memory_allocated) "
+        print(f"{who}peak device memory (max_memory_allocated) "
               f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB on "
-              f"{torch.cuda.get_device_name(device)}")
+              f"{torch.cuda.get_device_name(device)}", flush=True)
     if args.log_json:
-        with open(args.log_json, "w") as f:
-            json.dump(trainer.log, f, indent=1)
+        path = Path(args.log_json)
+        if mesh is not None:
+            path = path.with_name(f"{path.stem}.rank{mesh.rank}{path.suffix}")
+        path.write_text(json.dumps(trainer.log, indent=1))
     return trainer, state
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():            # a torchrun rank
+        dist.destroy_process_group()

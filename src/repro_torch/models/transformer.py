@@ -37,7 +37,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         blocks._require_attn(spec)
 
 
-def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal) -> dict:
+def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut) -> dict:
     d, H, KH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     ones = lambda n: torch.ones(n, dtype=torch.float32, device=normal.device)  # noqa: E731
@@ -62,9 +62,9 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal) -> dict:
     ffn = {"router": {"w": normal((d, E), d ** -0.5, torch.float32),
                       "bias": torch.zeros(E, dtype=torch.float32,
                                           device=normal.device)},
-           "w1": normal((E, d, f), d ** -0.5),
-           "w3": normal((E, d, f), d ** -0.5),
-           "w2": normal((E, f, d), f ** -0.5)}
+           "w1": cut(normal((E, d, f), d ** -0.5)),
+           "w3": cut(normal((E, d, f), d ** -0.5)),
+           "w2": cut(normal((E, f, d), f ** -0.5))}
     if moe.num_shared_experts:
         fs = moe.num_shared_experts * f
         ffn["shared"] = {"w1": normal((d, fs), d ** -0.5),
@@ -88,16 +88,22 @@ class _Normal:
 
 
 def init_params(cfg: ModelConfig, *, device, dtype=torch.float32,
-                seed: int = 0) -> dict:
+                seed: int = 0, mesh=None) -> dict:
     """Random weights with the JAX init's shapes and scales: matrices in
-    ``dtype``, norm scales and the router in fp32."""
+    ``dtype``, norm scales and the router in fp32.  Under a mesh
+    (``launch/mesh.py``) each expert weight keeps only this rank's E / P
+    experts, cut from the same draw as the one-rank init makes, and the
+    whole weight is freed as soon as it is cut."""
     _check_supported(cfg)
     normal = _Normal(seed, device, dtype)
+    cut = ((lambda w: w) if mesh is None
+           else (lambda w: mesh.local_experts(w).clone()))
     params = {"embed": normal((cfg.padded_vocab, cfg.d_model), 0.02),
               "final_norm": {"scale": torch.ones(cfg.d_model, device=normal.device)}}
     if not cfg.tie_embeddings:
         params["head"] = normal((cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5)
-    params["layers"] = [_init_layer(spec, cfg, normal) for spec in cfg.layer_specs()]
+    params["layers"] = [_init_layer(spec, cfg, normal, cut)
+                        for spec in cfg.layer_specs()]
     return params
 
 

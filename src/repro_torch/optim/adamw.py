@@ -28,25 +28,43 @@ def adamw_init(params: list) -> AdamWState:
     return AdamWState(step=0, mu=zeros(), nu=zeros())
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, sharded=None, reduce=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in fp32 (a 0-d tensor on
-    the tensors' device; a missing gradient counts as zeros)."""
-    total = None
-    for t in tensors:
+    the tensors' device; a missing gradient counts as zeros).
+
+    Across EP ranks (``sharded`` flags the tensors each rank holds a slice
+    of, ``reduce`` sums a 0-d tensor over the EP group) the norm is the
+    whole model's: the replicated tensors' squares once, plus the slices'
+    squares summed over the group."""
+    if sharded is None:
+        sharded = [False] * len(tensors)
+    total, split = None, None
+    for t, part in zip(tensors, sharded):
         if t is None:
             continue
         sq = t.float().square().sum()
-        total = sq if total is None else total + sq
+        if part:
+            split = sq if split is None else split + sq
+        else:
+            total = sq if total is None else total + sq
+    if reduce is not None:
+        split = reduce(split if split is not None
+                       else torch.zeros((), device=total.device))
+    if split is not None:
+        total = split if total is None else total + split
     return torch.sqrt(total) if total is not None else torch.zeros(())
 
 
 @torch.no_grad()
 def adamw_update(grads: list, state: AdamWState, params: list, *, lr: float,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 sharded=None, reduce=None):
     """Update ``params`` and the moments in place; returns (state, metrics).
-    A gradient of None is a zero gradient (weight decay still applies)."""
-    gnorm = global_norm(grads)
+    A gradient of None is a zero gradient (weight decay still applies).
+    ``sharded`` and ``reduce`` make the clipping norm the whole model's
+    across EP ranks (``global_norm``)."""
+    gnorm = global_norm(grads, sharded, reduce)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     f32 = torch.float32

@@ -5,11 +5,24 @@ Each step:
      router load (s''), through the memory model (Eq. 8-9, with the
      pipeline's extra live chunk), cold-starting from the worst case
      s' -> e*s*k.  Without an EP context the local path has no exchange to
-     overlap, so the depth is planned as 1.
+     overlap, so the depth is planned as 1.  MACT reads the global load,
+     so every rank picks the same schedule.
   2. The step runs under a ``DistContext`` built for that schedule (PyTorch
      runs eagerly: there is nothing to compile or cache).
   3. The router load feeds back to MACT; the log, ``chunk_trace`` and
      ``pipeline_trace`` record the step.
+
+Under a mesh (``ctx.mesh``, ``launch/mesh.py``) of D x P ranks, MACT plans
+with ``Parallelism(e=P, b=global_batch // D)``, as the JAX trainer does for
+that mesh.  The tokens are partitioned by whole sequences: rank r = i P + j
+takes rows [r b, (r+1) b) of the step's global batch, b = global_batch /
+(D P), so attention stays on the rank and the EP ranks are data-parallel
+ranks, as in the paper's Megatron layout.  (The JAX package cuts the
+sequence over the model axis inside its ``shard_map`` instead; under
+dropless routing y, load and drops do not depend on which rank holds a
+token.)  The step's gradients follow ``training/step.py``'s contract; the
+log's metrics are global and equal on every rank, and ``tgs`` counts the
+global tokens.
 
 Not ported yet (they raise): adaptive per-layer MACT, expert placement,
 checkpoint/resume, the fault injector and the OOM degradation ladder.  An
@@ -63,8 +76,16 @@ class Trainer:
         for name in _NOT_PORTED:
             if getattr(self, name):
                 raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
-        # one EP peer (ctx.ep_group is None), one data-parallel rank
-        self.par = Parallelism(e=1, b=max(1, self.global_batch))
+        mesh = self.ctx.mesh
+        D, P = mesh.shape if mesh is not None else (1, 1)
+        if self.global_batch % (D * P):
+            raise ValueError(f"global batch {self.global_batch} does not split "
+                             f"into whole sequences over {D * P} ranks")
+        self.par = Parallelism(e=P if self.cfg.moe is not None else 1,
+                               b=max(1, self.global_batch // D))
+        rows = self.global_batch // (D * P)
+        rank = mesh.rank if mesh is not None else 0
+        self._rows = slice(rank * rows, (rank + 1) * rows)
         self.mact = MACTController(self.cfg, self.par, self.hw, self.seq_len,
                                    fused=self.ctx.moe_fused)
         self.data = SyntheticLMData(self.cfg, self.seq_len, self.global_batch,
@@ -98,14 +119,14 @@ class Trainer:
         ``seed`` on the context's device)."""
         if state is None:
             state = init_train_state(self.cfg, self.dtype, self.ctx.device,
-                                     self.seed)
+                                     self.seed, mesh=self.ctx.mesh)
         dev = self.ctx.device
         for _ in range(steps):
             step_idx = state.step
             chunks, pipeline = self.choose_schedule()
             step_fn = make_train_step(self.cfg, self._context(chunks, pipeline),
                                       lr=self.lr)
-            batch = {k: torch.as_tensor(v, device=dev)
+            batch = {k: torch.as_tensor(v[self._rows], device=dev)
                      for k, v in self.data.batch_at(step_idx).items()}
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
@@ -120,6 +141,11 @@ class Trainer:
                    "chunks": chunks, "pipeline": pipeline, "time_s": dt,
                    "tgs": tgs, "max_load": float(load.max()),
                    "drops": float(metrics["drops"])}
+            if self.par.e > 1:
+                # token-slots each model index's experts received, summed
+                # over the data groups and the MoE layers (at D = 1, each
+                # EP rank's received rows): the cross-rank imbalance
+                rec["recv_by_peer"] = load.reshape(self.par.e, -1).sum(1).tolist()
             self.log.append(rec)
             self.chunk_trace.append(chunks)
             self.pipeline_trace.append(pipeline)

@@ -712,6 +712,148 @@ def test_training_on_the_local_path_raises_on_the_card(cuda):
         train.main(["--arch", "mixtral-8x7b", "--smoke", "--steps", "1"])
 
 
+# -- EP across ranks on the one card -----------------------------------------
+
+def _ep_rank(rank: int, shape: tuple, store: str, out: str, what: str) -> None:
+    """One gloo rank on the card (spawned: CUDA cannot be forked); writes
+    what it measured to out/rank<r>.json."""
+    import json
+    from pathlib import Path
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = mesh_lib.init_world(rank, shape[0] * shape[1], store, "cuda")
+        mesh = mesh_lib.make_host_mesh(shape)
+        rec = (_ep_layer_errors if what == "layer" else _ep_losses)(mesh, dev)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _ep_layer_errors(mesh, dev) -> dict:
+    """The EP layer on this rank's E / P experts through the kernels (CUDA
+    tensors) and through their plain versions (the same inputs on the
+    CPU), over the same mesh: the largest differences of y and of every
+    gradient, per leg, and each leg's kernel launches."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import moe
+    E, d, f, T = 8, 256, 512, 128
+    cfg = MoEConfig(num_experts=E, top_k=2, d_ff_expert=f)
+    g = torch.Generator().manual_seed(0)
+    full = {"router": torch.randn((d, E), generator=g) * d ** -0.5,
+            "w1": torch.randn((E, d, f), generator=g) * d ** -0.5,
+            "w3": torch.randn((E, d, f), generator=g) * d ** -0.5,
+            "w2": torch.randn((E, f, d), generator=g) * f ** -0.5}
+    full["router"][:, 0] += 1.0                            # uneven loads
+    x = torch.randn((mesh.size, 1, T, d), generator=g)[mesh.rank]
+    rec = {}
+    for leg in ("fused", "ragged"):
+        outs = []
+        for device in (torch.device("cpu"), dev):
+            for fn in _cuda.wrappers():
+                fn.launches = 0
+            params = {"router": {"w": full["router"].to(device).requires_grad_(),
+                                 "bias": torch.zeros(E, device=device)},
+                      **{k: mesh.local_experts(full[k]).to(device).requires_grad_()
+                         for k in ("w1", "w3", "w2")}}
+            xd = x.to(device).requires_grad_()
+            ctx = moe.DistContext(device=device, mesh=mesh, moe_strategy="ep_shardmap",
+                                  moe_chunks=2, moe_fused=leg == "fused",
+                                  moe_ragged=leg == "ragged", ragged_block=64)
+            y, st = moe.moe_ffn(params, xd, cfg, ctx)
+            leaves = [xd, params["router"]["w"], params["w1"], params["w3"], params["w2"]]
+            grads = torch.autograd.grad((y ** 2).sum() + st["aux_loss"], leaves)
+            outs.append([y.detach().cpu()] + [t.cpu() for t in grads])
+            launches = {fn.__name__: fn.launches for fn in _cuda.wrappers() if fn.launches}
+        rec[leg] = {"errors": [(a - b).abs().max().item() / (1 + b.abs().max().item())
+                               for a, b in zip(outs[1], outs[0])],
+                    "launches": launches}
+    return rec
+
+
+def _ep_losses(mesh, dev) -> dict:
+    """2 reduced fp32 training steps per leg on the card and on the CPU."""
+    from repro_torch.training.step import make_train_state
+    from repro_torch.training.trainer import Trainer
+    cfg = get_config("mixtral-8x7b").reduced()
+    rec = {}
+    for leg in ("fused", "ragged"):
+        for side, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            ctx = DistContext(device=device, moe_strategy="ep_shardmap", mesh=mesh,
+                              moe_fused=leg == "fused", moe_ragged=leg == "ragged")
+            params = transformer.init_params(cfg, device="cpu", seed=2, mesh=mesh)
+            trainer = Trainer(cfg, ctx, seq_len=64, global_batch=2, lr=1e-3)
+            trainer.fit(2, make_train_state(_tree_to(params, device)))
+            rec[f"{leg}/{side}"] = {
+                "losses": [r["loss"] for r in trainer.log],
+                "schedules": [trainer.chunk_trace, trainer.pipeline_trace]}
+    return rec
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _run_ep_ranks(shape: tuple, tmp_path, what: str) -> list:
+    import json
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    n = shape[0] * shape[1]
+    procs = [ctx.Process(target=_ep_rank, args=(r, shape, f"file://{tmp_path}/store",
+                                                  str(tmp_path), what))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(300)
+        assert not any(p.is_alive() for p in procs), "a rank did not finish in 300 s"
+        assert [p.exitcode for p in procs] == [0] * n
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["E_local4", "E_local2"])
+def test_ep_layer_kernels_match_their_plain_versions_across_ranks(cuda, shape, tmp_path):
+    """The EP layer over a mesh of gloo ranks sharing the card: the kernels
+    against their plain versions through the same exchange, fp32, at
+    E_local 4 (two ranks) and 2 (four ranks); every kernel of each leg
+    launched on every rank."""
+    want = {"fused": {"fused_moe", "ragged_matmul", "scatter_rows", "gather_combine",
+                      "segment_outer"},
+            "ragged": {"ragged_swiglu", "ragged_matmul", "scatter_rows",
+                       "gather_combine", "segment_outer"}}
+    for r, rec in enumerate(_run_ep_ranks(shape, tmp_path, "layer")):
+        for leg, got in rec.items():
+            assert max(got["errors"]) <= 1e-4, (r, leg, got["errors"])
+            assert set(got["launches"]) == want[leg], (r, leg, got["launches"])
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_the_card_reproduce_the_cpu_losses(cuda, tmp_path):
+    """2 reduced fp32 training steps per leg on a 1x2 mesh of gloo ranks
+    sharing the card equal the same ranks' steps on the CPU (the
+    tolerances of chip_smoke.py's check phase) with the same schedules."""
+    for rec in _run_ep_ranks((1, 2), tmp_path, "losses"):
+        for leg, tol in (("fused", 1e-4), ("ragged", 1e-5)):
+            card, cpu = rec[f"{leg}/card"], rec[f"{leg}/cpu"]
+            assert card["schedules"] == cpu["schedules"]
+            np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=0, atol=tol)
+
+
 # -- the serving engine's CUDA graphs ----------------------------------------
 
 # (prompt length, generated tokens): 6 requests through 2 slots, prompts of

@@ -101,22 +101,35 @@ def test_moe_ffn_matches_jax(B, S, chunks, mode):
 
 
 def test_unported_strategies_raise():
-    """EP, dense and local resolve; an unknown strategy is refused; the EP
-    option still to be ported (EP across ranks) raises, while the ragged
+    """EP, dense and local resolve; an unknown strategy is refused; under a
+    multi-rank mesh "auto" is EP, a non-EP strategy raises and so does an EP
+    layer whose tokens do not split (the JAX package's message); the EP
+    option still to be ported (expert placement) raises, while the ragged
     leg runs and computes what the fused leg does."""
+    from repro_torch.core.ep import moe_ffn_ep
+    from repro_torch.launch.mesh import Mesh
     cfg = get_config("mixtral-8x7b").reduced().moe
     for strategy in ("ep_shardmap", "dense", "tp_gspmd"):
         assert tmoe.resolve_strategy(
             cfg, tmoe.DistContext(device=CPU, moe_strategy=strategy)) == strategy
     with pytest.raises(ValueError, match="unknown MoE strategy"):
         tmoe.resolve_strategy(cfg, tmoe.DistContext(device=CPU, moe_strategy="tp"))
+    # resolving reads only the mesh's shape: no process group is needed
+    mesh = Mesh(shape=(1, 2), coords=(0, 0), ep_group=None, dp_group=None)
+    on_mesh = lambda **kw: tmoe.DistContext(device=CPU, mesh=mesh, **kw)  # noqa: E731
+    assert tmoe.resolve_strategy(cfg, on_mesh(), (1, 4)) == "ep_shardmap"
+    for strategy in ("tp_gspmd", "dense"):
+        with pytest.raises(ValueError, match="no rank holds all the experts"):
+            tmoe.resolve_strategy(cfg, on_mesh(moe_strategy=strategy))
+    with pytest.raises(ValueError, match="do not divide mesh axes"):
+        tmoe.resolve_strategy(cfg, on_mesh(moe_strategy="ep_shardmap", moe_chunks=8),
+                              (1, 4))
     x = torch.zeros((1, 4, 256))
     params = {"router": {"w": torch.zeros((256, 4)), "bias": torch.zeros(4)},
               **{k: torch.zeros((4, 256, 512) if k != "w2" else (4, 512, 256))
                  for k in ("w1", "w3", "w2")}}
     with pytest.raises(NotImplementedError):
-        tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
-            device=CPU, moe_strategy="ep_shardmap", ep_group=object(), moe_fused=True))
+        moe_ffn_ep(params, x, cfg, fused=True, placement=object())
     gen = torch.Generator().manual_seed(0)
     for leaf in (params["router"]["w"], params["w1"], params["w3"], params["w2"]):
         leaf.copy_(torch.randn(leaf.shape, generator=gen) * leaf.shape[-2] ** -0.5)
