@@ -66,7 +66,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches; the phase fails on a non-finite loss, ranks that
               disagree, a kernel of a leg that did not launch on a rank,
               (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
-9. check   -- the reduced Mixtral config in fp32 on the card (TF32 off for
+9. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
+              leg: (a) launch/train.py --inject "oom@2,burst@2x64"
+              --no-pipeline for 4 steps of 2 x 2048 tokens must escalate
+              once, at step 2, to a deeper chunk count, and the burst must
+              raise MACT's next chunk count; (b) in a process whose
+              allocator maps expandable segments, one step of 32 x 512
+              tokens at (1, 1), (2, 1) and (4, 1), then (1, 1) under a
+              memory cap between the peaks of (1, 1) and (2, 1): a real
+              torch.cuda.OutOfMemoryError must be caught by the guard and
+              the step must end on a rung bit-equal (loss and a digest of
+              every parameter and moment) to the uncapped run on it; (c)
+              run A 4 steps, run B checkpointing every 2 steps and crashing
+              at step 3, run C resuming to step 4: C's losses and final
+              digest equal A's (checkpoint bytes, save, verify and restore
+              seconds printed; the disk must hold the payload); (d) the
+              same kill-and-resume on 2 card ranks (gloo, reduced config),
+              an injected OOM walked in lockstep, and one rank's torn
+              payload invalidating the step for both.
+10. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
               steps on each leg must give the same schedules and losses, at
@@ -81,6 +99,7 @@ of the repository, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -942,8 +961,7 @@ def report_training(trainer, wall: float, launches: dict, steps: int) -> dict:
     never launched.  Returns MACT's memory report at the last schedule."""
     import math
 
-    import torch
-    peak = torch.cuda.max_memory_allocated()
+    peak = trainer.max_memory_allocated       # over the run's attempts
     for r in trainer.log:
         print(f"step {r['step']}: loss {r['loss']:.6f} (ce {r['ce']:.6f}, aux "
               f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.4f}, schedule "
@@ -1240,7 +1258,7 @@ def _ep_rank(rank: int, port: int, out_dir: str) -> None:
                                                 trainer.log[-1]["pipeline"])
             out = {"log": trainer.log, "chunks": trainer.chunk_trace,
                    "pipeline": trainer.pipeline_trace, "wall_s": wall,
-                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "max_memory_allocated": trainer.max_memory_allocated,
                    "modeled_bytes": report["total_gb"] * 2**30,
                    "modeled_static_bytes": report["static_gb"] * 2**30,
                    "card_in_use_after_steps": total - free,
@@ -1366,6 +1384,382 @@ def train_ep_phase(one_peer_ce: float) -> dict:
         raise SystemExit("the 2-rank run's step-1 ce differs from the one-peer run's")
     print(f"the card's memory in use at the busiest sample (both ranks, all processes): "
           f"{max(used) / 1e9:.2f} GB", flush=True)
+    return launches
+
+
+# the resilience phase: full-width Mixtral-8x7B at 1 layer (depth cut from
+# 32: 1.713 B params, 20.6 GB of weights and moments, 17.1 GB a checkpoint),
+# bf16, EP at one peer, the fused leg
+RES_ARGS = ["--arch", "mixtral-8x7b", "--layers", "1", "--ep", "--fused",
+            "--steps", "4", "--seq-len", "2048", "--global-batch", "2",
+            "--lr", "1e-4", "--seed", "0"]
+# (a) MACT at depth 1 plans (1, 1) at this size (s'' 8192 against s'max
+# 377543), so the injected OOM's first rung, (2, 1), is a deeper chunk count,
+# and a burst of 64x the observed load (more than s'max / s'') raises the
+# next plan to 2 chunks
+RES_BURST = 64.0
+RES_INJECT = f"oom@2,burst@2x{RES_BURST:g}"
+# (b) a real OOM: 32 sequences of 512 tokens, where the MoE layer's backward
+# sets the step's peak (at 4 x 4096, attention's scores set it and (1, 1) is
+# only ~0.23 GB above (2, 1)); the rungs' peaks must differ by this much
+OOM_SEQ, OOM_BATCH, OOM_GAP = 512, 32, 0.5e9
+RES_TIMEOUT_S = 600
+
+
+def state_digest(state) -> str:
+    """A digest of every parameter's and moment's bits, computed on the card
+    (two 64-bit sums of each tensor's words, one position-weighted)."""
+    import hashlib
+
+    import torch
+    from repro_torch.optim.adamw import param_list
+    sums = []
+    for t in param_list(state.params) + list(state.opt.mu) + list(state.opt.nu):
+        w = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        s1 = s2 = 0
+        for i in range(0, w.numel(), 1 << 26):
+            c = w[i:i + (1 << 26)].to(torch.int64)
+            s1 += int(c.sum())
+            s2 += int((c * (torch.arange(c.numel(), device=c.device) % 65521 + 1)).sum())
+        sums.append((s1, s2))
+    return hashlib.sha256(repr((state.step, state.opt.step, sums)).encode()).hexdigest()[:16]
+
+
+def _res_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mixtral-8x7b"), num_layers=1)
+
+
+def _fused_ctx(**kw):
+    import torch
+    from repro_torch.core.moe import DistContext
+    return DistContext(device=torch.device("cuda"), moe_strategy="ep_shardmap",
+                       moe_fused=True, **kw)
+
+
+def _injected_ladder() -> None:
+    """(a) launch/train.py --inject: one escalation at step 2 to a deeper
+    chunk count, and a burst that raises MACT's next chunk count."""
+    import math
+
+    from repro_torch.launch import train
+    trainer, state = train.main(RES_ARGS + ["--no-pipeline", "--inject", RES_INJECT])
+    esc, audits = trainer.guard.escalations, trainer.guard.audits
+    print(f"(a) --inject {RES_INJECT} --no-pipeline: chunk trace {trainer.chunk_trace}, "
+          f"pipeline trace {trainer.pipeline_trace}, oom_retries "
+          f"{[r['oom_retries'] for r in trainer.log]}, losses "
+          f"{[round(r['loss'], 6) for r in trainer.log]}, fired {trainer.injector.fired}",
+          flush=True)
+    for a in audits:
+        print(f"    audit: step {a['step']} {a['key']}: MACT's model "
+              f"{a['modeled_total_gb']:.3f} GiB (fits: {a['modeled_fits']}), headroom "
+              f"{a.get('headroom')}", flush=True)
+    plan = trainer.mact.history[-1]
+    unburst = trainer.mact._schedule_for(plan["s_pp"] / RES_BURST, 1).chunks
+    print(f"    MACT after the burst: s'' {plan['s_pp']:.0f} -> (chunks {plan['bin']}, depth "
+          f"{plan['depth']}); the same load without the burst: chunks {unburst}", flush=True)
+    ok = (len(esc) == 1 and esc[0]["step"] == 2
+          and [r["oom_retries"] for r in trainer.log] == [0, 0, 1, 0]
+          and trainer.log[2]["chunks"] > trainer.log[1]["chunks"]
+          and trainer.log[3]["chunks"] > unburst
+          and all(math.isfinite(r["loss"]) for r in trainer.log))
+    if not ok:
+        raise SystemExit("(a) the injected ladder did not escalate once at step 2 to a "
+                         "deeper chunk count, or the burst did not raise the next plan")
+    del trainer, state
+
+
+def _real_oom_child(rank: int, out_dir: str) -> None:
+    """(b), in a process of its own, whose allocator maps expandable
+    segments (PYTORCH_CUDA_ALLOC_CONF, set by the parent): one step of the
+    incumbent (1, 1) and of the rungs (2, 1), (4, 1) uncapped from the same
+    seed, then the incumbent under a memory cap between the peaks of (1, 1)
+    and (2, 1), through the guard."""
+    import gc
+
+    import torch
+    from repro_torch.kernels._cuda import wrappers
+    from repro_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for fn in wrappers():
+        fn.launches = 0
+    cfg, total = _res_cfg(), torch.cuda.get_device_properties(0).total_memory
+    out = {"runs": {}}
+
+    def run(c: int, cap=None) -> dict:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cap:
+            torch.cuda.set_per_process_memory_fraction(cap / total)
+        tr = Trainer(cfg, _fused_ctx(moe_chunks=c, pipeline_chunks=1), seq_len=OOM_SEQ,
+                     global_batch=OOM_BATCH, lr=1e-4, seed=0, dtype=torch.bfloat16,
+                     use_mact=False)
+        spans, real = [], tr._step_for
+
+        def timed(key):                       # each attempt's seconds
+            fn = real(key)
+
+            def attempt(state, batch):
+                t0 = time.perf_counter()
+                try:
+                    res = fn(state, batch)
+                    float(res[1]["loss"])
+                    spans.append([str(key), time.perf_counter() - t0, "ok"])
+                    return res
+                except torch.cuda.OutOfMemoryError:
+                    spans.append([str(key), time.perf_counter() - t0, "OutOfMemoryError"])
+                    raise
+            return attempt
+
+        tr._step_for = timed
+        try:
+            state = tr.fit(1)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        rec = {"loss": tr.log[0]["loss"], "chunks": tr.log[0]["chunks"],
+               "pipeline": tr.log[0]["pipeline"], "step_s": tr.log[0]["time_s"],
+               "allocated": torch.cuda.max_memory_allocated(),
+               "reserved": torch.cuda.max_memory_reserved(), "digest": state_digest(state),
+               "spans": spans, "escalations": tr.guard.escalations,
+               "audits": tr.guard.audits}
+        del state, tr
+        return rec
+
+    for c in (1, 2, 4):
+        out["runs"][c] = run(c)
+    a1, a2 = out["runs"][1]["allocated"], out["runs"][2]["allocated"]
+    out["cap"] = (a1 + a2) / 2
+    out["total"] = total
+    if a1 - a2 >= OOM_GAP:
+        out["capped"] = run(1, out["cap"])
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers()}
+    Path(out_dir, "oom.json").write_text(json.dumps(out, default=str))
+
+
+def _real_oom(launches: dict) -> None:
+    """(b) a real torch.cuda.OutOfMemoryError caught by the guard, and the
+    step finished on a rung bit-equal to the uncapped run on that rung."""
+    import tempfile
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _run_ranks(_real_oom_child, 1, (tmp,), RES_TIMEOUT_S)
+            out = json.loads(Path(tmp, "oom.json").read_text())
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    for name, n in out["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    runs = out["runs"]
+    for c, r in runs.items():
+        print(f"(b) uncapped ({c}, 1), {OOM_BATCH} x {OOM_SEQ} tokens: loss {r['loss']!r}, "
+              f"max_memory_allocated {r['allocated'] / 1e9:.3f} GB, max_memory_reserved "
+              f"{r['reserved'] / 1e9:.3f} GB, step {r['step_s']:.3f} s, digest {r['digest']}",
+              flush=True)
+    gap = runs["1"]["allocated"] - runs["2"]["allocated"]
+    print(f"    (1, 1) above (2, 1): {gap / 1e9:.3f} GB allocated, "
+          f"{(runs['1']['reserved'] - runs['2']['reserved']) / 1e9:.3f} GB reserved; cap "
+          f"{out['cap'] / 1e9:.3f} GB (set_per_process_memory_fraction "
+          f"{out['cap'] / out['total']:.5f})", flush=True)
+    if gap < OOM_GAP or "capped" not in out:
+        raise SystemExit(f"(b) (1, 1)'s peak is only {gap / 1e9:.3f} GB above (2, 1)'s: "
+                         f"no cap between them can be trusted")
+    cap = out["capped"]
+    for e in cap["escalations"]:
+        print(f"    escalation: step {e['step']} {e['failed']} -> {e['next']}: "
+              f"{e['error'][:150]}", flush=True)
+    for a in cap["audits"]:
+        print(f"    audit: MACT's model {a['modeled_total_gb']:.3f} GiB (fits: "
+              f"{a['modeled_fits']}); the failed attempt: peak allocated "
+              f"{a['peak_allocated_gb']:.3f} GiB, reserved {a['peak_reserved_gb']:.3f} GiB, "
+              f"refused {a['tried_gb']} GiB", flush=True)
+    for key, s, how in cap["spans"]:
+        print(f"    attempt {key}: {s:.3f} s, {how}", flush=True)
+    retry_s = cap["step_s"] - sum(s for _, s, _ in cap["spans"])
+    print(f"    the step under the cap: {cap['step_s']:.3f} s (release between attempts "
+          f"{retry_s:.3f} s), loss {cap['loss']!r}, digest {cap['digest']}, rung "
+          f"({cap['chunks']}, {cap['pipeline']})", flush=True)
+    rung = runs.get(str(cap["chunks"]))
+    real = [e for e in cap["escalations"] if "CUDA out of memory" in e["error"]]
+    if (not real or rung is None or cap["loss"] != rung["loss"]
+            or cap["digest"] != rung["digest"]):
+        raise SystemExit("(b) no real CUDA OOM was caught, or the step did not finish on a "
+                         "rung bit-equal to the uncapped run on that rung")
+
+
+def _kill_and_resume() -> None:
+    """(c) run A 4 steps; run B checkpoints every 2 and crashes at step 3;
+    run C resumes to step 4: steps 3-4 and the final state equal A's bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.runtime.faults import FaultInjector, SimulatedCrash
+    from repro_torch.training.trainer import Trainer
+
+    cfg = _res_cfg()
+    kw = dict(seq_len=2048, global_batch=2, lr=1e-4, seed=0, dtype=torch.bfloat16)
+    a = Trainer(cfg, _fused_ctx(), **kw)
+    state = a.fit(4)
+    want = state_digest(state)
+    params = sum(p.numel() for p in state.opt.mu)
+    del state
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="resilience-ckpt-")
+    try:
+        free = shutil.disk_usage(ckpt).free
+        need = params * 10
+        print(f"(c) {params / 1e9:.3f} B params: a checkpoint of ~{need / 1e9:.2f} GB "
+              f"(10 B/param) into {ckpt}, {free / 1e9:.1f} GB free", flush=True)
+        if free < need * 1.1:
+            raise SystemExit(f"(c) the disk has {free / 1e9:.1f} GB free, the checkpoint "
+                             f"needs {need / 1e9:.1f}")
+        b = Trainer(cfg, _fused_ctx(), checkpoint_dir=ckpt, checkpoint_every=2,
+                    injector=FaultInjector.from_string("crash@3"), **kw)
+        try:
+            b.fit(4)
+            raise SystemExit("(c) run B did not crash at step 3")
+        except SimulatedCrash as e:
+            print(f"    run B: {e} after steps {[r['step'] for r in b.log]}", flush=True)
+        for rec in b.checkpoint_log:
+            print(f"    run B's checkpoint at step {rec['step']}: {rec['bytes']} bytes "
+                  f"({rec['bytes'] / 1e9:.3f} GB), save {rec['save_s']:.2f} s", flush=True)
+        del b
+        torch.cuda.empty_cache()
+        c = Trainer(cfg, _fused_ctx(), checkpoint_dir=ckpt, resume=True, **kw)
+        state = c.fit(4)
+        got = state_digest(state)
+        for rec in c.checkpoint_log:
+            print(f"    run C resumed from step {rec['resumed_from']}: verify (sha256 of "
+                  f"the payload) {rec['verify_s']:.2f} s, restore {rec['restore_s']:.2f} s",
+                  flush=True)
+        print(f"    losses A {[r['loss'] for r in a.log]}; C {[r['loss'] for r in c.log]}; "
+              f"digests A {want} C {got}", flush=True)
+        ok = (c.resumed_from == 2 and [r["step"] for r in c.log] == [3, 4]
+              and [r["loss"] for r in c.log] == [r["loss"] for r in a.log[2:]]
+              and got == want)
+        del state, c
+        if not ok:
+            raise SystemExit("(c) the resumed run is not bit-identical to run A")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _resume_rank(rank: int, store: str, out_dir: str, device: str = "cuda") -> None:
+    """(d) one of 2 card ranks (gloo) on a 1x2 mesh, the reduced config in
+    fp32: the kill-and-resume of (c) with an injected OOM walked in
+    lockstep at step 1, then one rank's torn payload."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpointing
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import DistContext
+    from repro_torch.kernels._cuda import wrappers
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.faults import FaultInjector, SimulatedCrash
+    from repro_torch.training.trainer import Trainer
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for fn in wrappers():
+        fn.launches = 0
+    try:
+        dev = mesh_lib.init_world(rank, 2, store, device)
+        mesh = mesh_lib.make_host_mesh((1, 2))
+        cfg = get_config("mixtral-8x7b").reduced()
+        ctx = DistContext(device=dev, moe_strategy="ep_shardmap", moe_fused=True, mesh=mesh)
+        kw = dict(seq_len=128, global_batch=2, lr=1e-3)
+        a_dir, b_dir = str(Path(out_dir, "a")), str(Path(out_dir, "b"))
+        a = Trainer(cfg, ctx, checkpoint_dir=a_dir, checkpoint_every=2,
+                    injector=FaultInjector.from_string("oom@1"), **kw)
+        want = state_digest(a.fit(4))
+        b = Trainer(cfg, ctx, checkpoint_dir=b_dir, checkpoint_every=2,
+                    injector=FaultInjector.from_string("oom@1,crash@3"), **kw)
+        try:
+            b.fit(4)
+            crashed = False
+        except SimulatedCrash:
+            crashed = True
+        c = Trainer(cfg, ctx, checkpoint_dir=b_dir, resume=True, **kw)
+        got = state_digest(c.fit(4))
+        rec = {"crashed": crashed, "resumed_from": c.resumed_from, "want": want, "got": got,
+               "losses_a": [r["loss"] for r in a.log], "losses_c": [r["loss"] for r in c.log],
+               "retries_a": [r["oom_retries"] for r in a.log],
+               "files": sorted(os.listdir(b_dir))}
+        mesh.barrier()
+        if rank == 1:                          # tear this rank's newest payload only
+            path = checkpointing.payload(a_dir, 4, rank, 2)
+            os.truncate(path, os.path.getsize(path) // 2)
+        mesh.barrier()
+        rec["valid_a"] = checkpointing.valid_steps(a_dir, world=2)
+        rec["launches"] = {fn.__name__: fn.launches for fn in wrappers()}
+        Path(out_dir, f"resume{rank}.json").write_text(json.dumps(rec))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_kill_and_resume(launches: dict) -> None:
+    """(d) the same kill-and-resume on 2 card ranks: per-rank files, a torn
+    file of one rank invalidating the step for both."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        _run_ranks(_resume_rank, 2, (f"file://{tmp}/store", tmp), 300)
+        recs = [json.loads(Path(tmp, f"resume{r}.json").read_text()) for r in range(2)]
+    for r, rec in enumerate(recs):
+        print(f"(d) rank {r}: run A losses {rec['losses_a']} (oom_retries "
+              f"{rec['retries_a']}); run B crashed: {rec['crashed']}; run C resumed from "
+              f"{rec['resumed_from']}, losses {rec['losses_c']}; digests A {rec['want']} C "
+              f"{rec['got']}; files {rec['files']}; valid steps after rank 1's step-4 "
+              f"payload was torn: {rec['valid_a']}", flush=True)
+        for name, n in rec["launches"].items():
+            if n:
+                launches[name] = launches.get(name, 0) + n
+    ok = all(rec["crashed"] and rec["resumed_from"] == 2 and rec["got"] == rec["want"]
+             and rec["losses_c"] == rec["losses_a"][2:] and rec["retries_a"] == [0, 1, 0, 0]
+             and rec["valid_a"] == [2] for rec in recs)
+    if not ok or recs[0]["losses_a"] != recs[1]["losses_a"]:
+        raise SystemExit("(d) the 2-rank kill-and-resume is not bit-identical, the ranks "
+                         "disagree, or one rank's torn file did not invalidate the step")
+
+
+def train_resilience_phase() -> dict:
+    """Drive the trainer's resilience path at full width, 1 layer: (a) the
+    injected ladder through launch/train.py, (b) a real CUDA OOM recovered,
+    (c) kill and resume, (d) the same on 2 card ranks at the reduced size.
+    Returns the path's launch counts, the children's included."""
+    phase("train (resilience)")
+    import gc
+
+    import torch
+    from repro_torch.kernels._cuda import wrappers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in wrappers():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    children: dict = {}
+    _injected_ladder()
+    _real_oom(children)
+    _kill_and_resume()
+    launches = {fn.__name__: fn.launches for fn in wrappers() if fn.launches}
+    _mesh_kill_and_resume(children)
+    for name, n in children.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"phase {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    missing = [k for k in EP_KERNELS["fused"] if not launches.get(k)]
+    if missing:
+        raise SystemExit(f"the resilience path never launched {missing}")
     return launches
 
 
@@ -1727,6 +2121,7 @@ def main() -> int:
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
     paths["train (EP, 2 ranks)"] = train_ep_phase(ce)
+    paths["train (resilience)"] = train_resilience_phase()
     check_phase()
     for path, launches in paths.items():
         for name, n in launches.items():

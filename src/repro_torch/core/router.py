@@ -50,9 +50,10 @@ def route(params: dict, x: torch.Tensor, cfg: MoEConfig) -> RouterOut:
                      aux.float(), load)
 
 
-def update_bias(bias: torch.Tensor, load: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """DeepSeek loss-free balancing: nudge under-loaded experts' bias up and
-    over-loaded experts' bias down.  Runs outside the gradient path."""
+def bias_step(load: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """DeepSeek loss-free balancing's step: +rate for under-loaded experts'
+    bias, -rate for over-loaded ones (the JAX package's ``update_bias`` is
+    bias + this).  Runs outside the gradient path."""
     load = load.float()
     err = load.mean() - load                                    # >0 if under-loaded
-    return bias + cfg.bias_update_rate * torch.sign(err)
+    return cfg.bias_update_rate * torch.sign(err)

@@ -13,6 +13,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --layers 2 --ep --fused --steps 4 --seq-len 2048 --global-batch 2 \
       --mesh 1x2 --nproc 2
+  # resilience: an injected OOM walks the degradation ladder, checkpoints
+  # every 2 steps; after a crash, --resume continues to --steps bit for bit
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --smoke --device cpu --ep --fused --steps 4 --inject oom@1 \
+      --checkpoint-dir /path/to/ckpt --checkpoint-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --smoke --device cpu --ep --fused --steps 6 \
+      --checkpoint-dir /path/to/ckpt --checkpoint-every 2 --resume
 
 Training on the card runs the EP strategy with the fused expert leg
 (``--ep --fused``).  The EP strategy's ragged leg trains too, through
@@ -27,7 +35,9 @@ the environment under ``torchrun``, or ``--nproc D*P`` spawns the ranks
 itself.  The backend is NCCL when every rank has a card of its own, gloo
 otherwise (several ranks on one card, or the CPU).  Rank 0 prints the log;
 every rank prints its schedule trace and, on a card, its own peak memory.
-``--mesh local`` (the default) and ``--mesh 1x1`` are one EP peer.
+``--mesh local`` (the default) and ``--mesh 1x1`` are one EP peer.  Under a
+mesh every rank gets the same ``--inject`` faults and the same
+``--checkpoint-dir``, where each rank writes its own files.
 """
 
 from __future__ import annotations
@@ -81,6 +91,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--nproc", type=int, default=0,
                     help="spawn this many ranks (D*P of --mesh) instead of "
                          "reading them from torchrun's environment")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest VALID checkpoint in --checkpoint-dir "
+                         "(corrupt saves are skipped) and train until --steps "
+                         "total steps")
+    ap.add_argument("--max-oom-retries", type=int, default=4,
+                    help="degradation-ladder bound per step")
+    ap.add_argument("--inject", default=None,
+                    help="faults, e.g. 'oom@3,burst@2x1.5,ckpt_truncate@4' "
+                         "(kind@step[xMAG][*TIMES])")
     ap.add_argument("--log-json", default=None,
                     help="write the log here (under a mesh, one file per rank: "
                          "NAME.rankR.json)")
@@ -141,6 +162,7 @@ def train(args, rank=None, init_method=None):
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core.moe import DistContext
+    from repro_torch.runtime.faults import FaultInjector
     from repro_torch.training.trainer import Trainer
 
     device = resolve_device(args.device)
@@ -173,7 +195,11 @@ def train(args, rank=None, init_method=None):
     trainer = Trainer(cfg, ctx, seq_len=args.seq_len,
                       global_batch=args.global_batch, lr=args.lr, seed=args.seed,
                       dtype=getattr(torch, dtype), use_mact=not args.no_mact,
-                      max_pipeline_depth=depth)
+                      max_pipeline_depth=depth, checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every, resume=args.resume,
+                      max_oom_retries=args.max_oom_retries,
+                      injector=(FaultInjector.from_string(args.inject)
+                                if args.inject else None))
     ep = ("local path" if not args.ep else "EP at one peer" if mesh is None else
           f"EP over a {mesh.shape[0]}x{mesh.shape[1]} mesh")
     if lead:
@@ -183,13 +209,21 @@ def train(args, rank=None, init_method=None):
               f"MACT {'off' if args.no_mact else 'on'}", flush=True)
     state = trainer.fit(args.steps, verbose=lead)
     who = "" if mesh is None else f"rank {mesh.rank}: "
+    if trainer.resumed_from is not None:
+        print(f"{who}resumed from checkpoint step {trainer.resumed_from}", flush=True)
+    if trainer.guard.escalations:
+        print(f"{who}OOM ladder: {len(trainer.guard.escalations)} escalation(s), "
+              f"headroom now {trainer.mact_headroom:.2f}", flush=True)
     if trainer.log:
         print(f"{who}final loss {trainer.log[-1]['loss']:.4f} at step "
               f"{trainer.log[-1]['step']}; chunk trace {trainer.chunk_trace[-8:]}; "
               f"pipeline trace {trainer.pipeline_trace[-8:]}", flush=True)
-    if device.type == "cuda":
+    else:
+        print(f"{who}nothing to do: checkpoint already at step {state.step} "
+              f">= target {args.steps}", flush=True)
+    if trainer.max_memory_allocated is not None:
         print(f"{who}peak device memory (max_memory_allocated) "
-              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB on "
+              f"{trainer.max_memory_allocated / 1e9:.2f} GB on "
               f"{torch.cuda.get_device_name(device)}", flush=True)
     if args.log_json:
         path = Path(args.log_json)

@@ -6,6 +6,13 @@ router's auxiliary loss), the backward, the in-place AdamW update and the
 loss-free router-bias update.  PyTorch runs eagerly, so there is no compiled
 step to cache: the trainer builds a context per schedule and calls this.
 
+The step is a transaction: the forward, the backward, the gradient
+all-reduces, the clipping norm and the router-bias steps write nothing of
+the state, and AdamW makes every allocation of its own before its first
+write (``optim/adamw.py``).  So an out-of-memory error anywhere in the step
+leaves the ``TrainState`` bit for bit as it was, and the OOM ladder
+(``runtime/guard.py``) retries from it.
+
 Under a mesh (``ctx.mesh``) each rank backpropagates its share of the one
 global loss: its cross-entropy sum over the global count of valid labels,
 plus ``aux_coef / n_moe`` times the replicated aux (core/ep.py: the world's
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import DistContext
-from repro_torch.core.router import update_bias
+from repro_torch.core.router import bias_step
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      named_params, param_list)
@@ -128,11 +135,13 @@ def make_train_step(cfg: ModelConfig, ctx: DistContext, *, lr=3e-4):
             _reduce_grads(grads, flags, mesh)
             norm = {"sharded": flags,
                     "reduce": lambda t: mesh.all_reduce_(t, "ep")}
+        # DeepSeek-style loss-free bias balancing runs outside the gradient;
+        # its steps are made here, before AdamW's first write
+        bias_steps = (_router_bias_steps(state.params, m["load"], cfg)
+                      if cfg.moe is not None and cfg.moe.loss_free_bias else [])
         opt, om = adamw_update(grads, state.opt, leaves, lr=lr_val, **norm)
         del grads
-        # DeepSeek-style loss-free bias balancing runs outside the gradient
-        if cfg.moe is not None and cfg.moe.loss_free_bias:
-            _update_router_biases(state.params, m["load"], cfg)
+        _apply_bias_steps(bias_steps)
         metrics = {**{k: v.detach() for k, v in m.items()},
                    **om, "lr": float(lr_val)}
         return TrainState(state.params, opt, state.step + 1), metrics
@@ -141,9 +150,17 @@ def make_train_step(cfg: ModelConfig, ctx: DistContext, *, lr=3e-4):
 
 
 @torch.no_grad()
-def _update_router_biases(params: dict, load: torch.Tensor, cfg: ModelConfig) -> None:
-    """The loss-free bias update on every router bias of the tree, in place
+def _router_bias_steps(params: dict, load: torch.Tensor, cfg: ModelConfig) -> list:
+    """(router bias, its loss-free step) for every router bias of the tree
     (the summed global load is the shared signal, as in the JAX package)."""
-    for path, leaf in named_params(params):
-        if "router" in path and "bias" in path:
-            leaf.copy_(update_bias(leaf, load, cfg.moe))
+    step = bias_step(load, cfg.moe)
+    return [(leaf, step) for path, leaf in named_params(params)
+            if "router" in path and "bias" in path]
+
+
+@torch.no_grad()
+def _apply_bias_steps(bias_steps: list) -> None:
+    """bias + step in place (the JAX package's ``update_bias``), on the
+    bias AdamW has just updated."""
+    for leaf, step in bias_steps:
+        leaf.add_(step)

@@ -1097,3 +1097,151 @@ def test_ragged_swiglu_and_flash_attention_take_the_plain_version_on_the_cpu():
         ragged_swiglu(buf, w1, w3[:, :8], b2e, total, 8)
     with pytest.raises(ValueError, match="blocks"):
         ragged_swiglu(x, w1, w3, b2e, total, 8)
+
+
+# ---------------------------------------------------------------------------
+# the resilience path on the card: the transactional AdamW, a real OOM walked
+# by the ladder, a bf16 checkpoint round trip
+# ---------------------------------------------------------------------------
+
+def _per_tensor_adamw(grads, mu, nu, params, step, lr, b1=0.9, b2=0.95, eps=1e-8,
+                      weight_decay=0.1, clip_norm=1.0):
+    """The update ``optim/adamw.py`` ran before it was sliced: one tensor at
+    a time, its fp32 temporaries made after earlier tensors were written."""
+    from repro_torch.optim.adamw import global_norm
+    gnorm = global_norm(grads)
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** step
+    bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** step
+    for p, g, m, v in zip(params, grads, mu, nu):
+        gf = torch.zeros_like(m) if g is None else g.to(torch.float32) * scale.to(g.device)
+        m.mul_(b1).add_(gf, alpha=1 - b1)
+        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+        u = (v / bc2.to(v.device)).sqrt_().add_(eps)
+        u = (m / bc1.to(m.device)).div_(u)
+        pf = p.to(torch.float32)
+        u.add_(pf, alpha=weight_decay)
+        p.copy_(pf.add_(u, alpha=-lr))
+
+
+@pytest.mark.cuda
+def test_adamw_allocates_nothing_after_its_first_write(cuda, monkeypatch):
+    """From AdamW's first write to its return the allocator makes nothing
+    (its workspace is the last allocation), and the sliced update equals the
+    per-tensor one bit for bit."""
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "_SLICE_ELEMS", 1000)      # several slices a tensor
+    gen = torch.Generator().manual_seed(0)
+    specs = [((64, 48), torch.bfloat16), ((5,), torch.float32), ((3000,), torch.bfloat16),
+             ((7, 300), torch.float32)]
+    params = [torch.randn(s, generator=gen).to(cuda, dt) for s, dt in specs]
+    grads = [torch.randn(s, generator=gen).to(cuda, dt) * 3 for s, dt in specs]
+    grads[1] = None
+    state = adamw.adamw_init(params)
+    for m, v in zip(state.mu, state.nu):
+        m.normal_()
+        v.uniform_()
+    twin = ([p.clone() for p in params], [m.clone() for m in state.mu],
+            [v.clone() for v in state.nu])
+    seen = []
+    real = adamw._workspace
+
+    def workspace(n, device):
+        w = real(n, device)
+        seen.append(torch.cuda.memory_stats()["allocation.all.allocated"])
+        return w
+
+    monkeypatch.setattr(adamw, "_workspace", workspace)
+    new, _ = adamw.adamw_update(grads, state._replace(step=4), params, lr=1e-2)
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert len(seen) == 1 and after == seen[0]
+    _per_tensor_adamw(grads, twin[1], twin[2], twin[0], 5, 1e-2)
+    for got, want in zip(params + new.mu + new.nu, twin[0] + twin[1] + twin[2]):
+        assert torch.equal(got, want)
+
+
+def _real_oom_child(out: str) -> None:
+    """One step of a 1-layer reduced Mixtral with wide experts (f 4096,
+    4096 tokens: the MoE backward sets the peak) at (1, 1), (2, 1) and
+    (4, 1) from the same seed, then (1, 1) under a memory cap between the
+    peaks of (1, 1) and (2, 1), through the trainer's guard.  Run in a
+    process whose allocator maps expandable segments, so that what a step
+    reserves under a cap follows what it allocates."""
+    import dataclasses
+    import hashlib
+    import json
+
+    from repro_torch.optim.adamw import param_list
+    from repro_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(base, num_layers=1,
+                              moe=dataclasses.replace(base.moe, d_ff_expert=4096))
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def run(c, cap=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cap:
+            torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            tr = Trainer(cfg, DistContext(device=torch.device("cuda"),
+                                          moe_strategy="ep_shardmap", moe_fused=True,
+                                          moe_chunks=c, pipeline_chunks=1),
+                         seq_len=128, global_batch=32, lr=1e-3, use_mact=False)
+            state = tr.fit(1)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        h = hashlib.sha256()
+        for t in param_list(state.params) + state.opt.mu + state.opt.nu:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return {"loss": tr.log[0]["loss"], "chunks": tr.log[0]["chunks"],
+                "allocated": torch.cuda.max_memory_allocated(), "digest": h.hexdigest(),
+                "escalations": [e["error"] for e in tr.guard.escalations]}
+
+    runs = {c: run(c) for c in (1, 2, 4)}
+    cap = (runs[1]["allocated"] + runs[2]["allocated"]) / 2
+    with open(out, "w") as f:
+        json.dump({"runs": runs, "capped": run(1, cap)}, f)
+
+
+@pytest.mark.cuda
+def test_a_real_oom_is_rolled_back_and_the_retry_equals_the_rung(cuda, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = tmp_path / "oom.json"
+    code = (f"import sys; sys.path.insert(0, {str(Path(__file__).parent)!r}); "
+            f"import test_torch_cuda as t; t._real_oom_child({str(out)!r})")
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    subprocess.run([sys.executable, "-c", code], env=env, timeout=600, check=True)
+    rec = json.loads(out.read_text())
+    runs, capped = rec["runs"], rec["capped"]
+    assert runs["1"]["allocated"] - runs["2"]["allocated"] > 64 << 20
+    assert capped["escalations"] and "CUDA out of memory" in capped["escalations"][0]
+    rung = runs[str(capped["chunks"])]
+    assert capped["chunks"] > 1
+    assert (capped["loss"], capped["digest"]) == (rung["loss"], rung["digest"])
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    from repro_torch import checkpointing
+    from repro_torch.training.step import init_train_state
+    cfg = get_config("mixtral-8x7b").reduced()
+    saved = init_train_state(cfg, torch.bfloat16, cuda, seed=0)
+    for m, v in zip(saved.opt.mu, saved.opt.nu):
+        m.normal_()
+        v.uniform_()
+    saved = saved._replace(step=7, opt=saved.opt._replace(step=7))
+    checkpointing.save(str(tmp_path), 7, saved)
+    got = checkpointing.restore(str(tmp_path), 7,
+                                init_train_state(cfg, torch.bfloat16, cuda, seed=1))
+    assert (got.step, got.opt.step) == (7, 7)
+    from repro_torch.optim.adamw import param_list
+    for a, b in zip(param_list(got.params) + got.opt.mu + got.opt.nu,
+                    param_list(saved.params) + saved.opt.mu + saved.opt.nu):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
