@@ -16,7 +16,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               SwiGLU, fused MoE, the expert weights' gradient written and
               added into a buffer, each also at an EP rank's layout: R
               4608 rows from 2 source blocks with -1 gaps, 4 local
-              experts; attention: flash attention at
+              experts, and at a placed EP rank's: R 4736, 5 weight slots
+              (a replica slot per rank); attention: flash attention at
               Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
               plain version, a one-call PyTorch yardstick where there is
               one, and the card's bound.  Times are device times (CUDA
@@ -66,7 +67,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches; the phase fails on a non-finite loss, ranks that
               disagree, a kernel of a leg that did not launch on a rank,
               (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
-9. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
+9. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
+              batch and fused leg, 5 steps, layer 0's router zeroed after
+              init (step 1 sends every token to experts 0 and 1, which
+              identity places on rank 0): launch/train.py with global
+              MACT, with --adaptive-mact, and with --adaptive-mact
+              --placement --placement-replicas 1, then the placed run on the
+              ragged leg through Trainer.  Each run prints, per step and
+              layer, the imbalance and each rank's received token-slots,
+              its schedule vectors, replans (migrated slots, the weight
+              exchange's bytes a step), the weight exchange's calls, bytes
+              and host ms a step, warm step seconds, and each rank's peak
+              against MACT's per-rank model with the replica term; the
+              placed runs also the forward + backward peak with the
+              placement above the same schedule at identity.  The phase
+              fails on a non-finite loss, ranks that disagree, a kernel of
+              the leg that did not launch at the 5-slot layout, layer 0
+              still at identity after the first replan, layer 1 moved,
+              layer 0's step-1 imbalance under 1.5, layer 0's hottest rank
+              receiving no fewer token-slots after the replan, (2, 1)
+              above (1, 1) on a placed run, or a placed run's first step
+              (identity at cold start) that differs from the global run's
+              in one bit.
+10. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
               leg: (a) launch/train.py --inject "oom@2,burst@2x64"
               --no-pipeline for 4 steps of 2 x 2048 tokens must escalate
               once, at step 2, to a deeper chunk count, and the burst must
@@ -84,12 +107,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               same kill-and-resume on 2 card ranks (gloo, reduced config),
               an injected OOM walked in lockstep, and one rank's torn
               payload invalidating the step for both.
-10. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
+11. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
               steps on each leg must give the same schedules and losses, at
               one peer and on a 2x2 mesh (4 gloo ranks on the card against
-              4 on the CPU).
+              4 on the CPU), where 2 fused-leg steps with adaptive MACT and
+              expert placement (a replica slot per rank, layer 0's router
+              zeroed) must also give the same schedule vectors and
+              placements.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -409,28 +435,43 @@ def _routed_chunk(gen, dev):
     return up, plan, R
 
 
-def _ep_rank_layout(gen, dev):
+def _ep_rank_layout(gen, dev, spec=None):
     """The received layout of rank 0 of the EP phase's 1 x 2 mesh at MACT's
     (2, 2): each of P = 2 ranks routes a t_c = 1024-token chunk over 8
     experts and sends rank 0 a cap_send = 2048-row block (its rows for
-    experts 0-3, -1 past them); rank 0's E_local = 4 experts get the
-    ragged plan over R = P cap_send + E_local bm rows.  Returns (plan,
-    rows received, R, E_local, rank 0's own send slots (t_c, k) into its
-    P cap_send send and return rows)."""
+    rank 0's groups, -1 past them); rank 0's E_local groups get the ragged
+    plan over R = P cap_send + E_local bm rows.  The groups are experts
+    0-3, or, under a placement ``spec``, rank 0's slots_per_peer weight
+    slots (routed ids mapped to slots as core/ep.py maps them).  Returns
+    (plan, rows received, R, E_local, rank 0's own send slots (t_c, k) into
+    its P cap_send send and return rows, the experts of rank 0's groups)."""
     import torch
     from repro_torch.core import dispatch as dsp
+    from repro_torch.core.placement import place_expert_idx
     P, t_c = EP_MESH[1], T_CHUNK // 2
-    e_local, cap = E // P, t_c * min(TOP_K, E // P)
+    groups = spec.total_slots if spec is not None else E
+    e_local = groups // P
+    cap = t_c * min(TOP_K, e_local)
     plans = []
     for _ in range(P):
         scores = torch.rand((t_c, E), generator=gen, device=dev)
         ids = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :TOP_K]
-        plans.append(dsp.make_unified_plan(ids.to(torch.int32), E, P, cap_send=cap))
+        sel = place_expert_idx(ids.to(torch.int32), spec)
+        plans.append(dsp.make_unified_plan(sel, groups, P, cap_send=cap))
     counts = [up.counts[0] for up in plans]
     recv_cnt = torch.stack(counts)                       # (P, E_local) for rank 0
     R = -(-(P * cap + e_local * BLOCK_M) // BLOCK_M) * BLOCK_M
     plan = dsp.recv_ragged_plan(recv_cnt, dsp.eids_from_counts(recv_cnt, cap), R, BLOCK_M)
-    return plan, P * cap, R, e_local, plans[0].send_slots
+    experts = (list(spec.slot_to_expert[:e_local]) if spec is not None
+               else list(range(e_local)))
+    return plan, P * cap, R, e_local, plans[0].send_slots, experts
+
+
+# the kernels' layout under expert placement (phase "train (adaptive +
+# placement, 2 ranks)"): one replica slot per rank, so rank 0 of the 1 x 2
+# mesh runs 5 weight slots, planned for a layer whose load is skewed toward
+# experts 0 and 1 (the phase's layer 0)
+PLACED_LOAD = (100, 100, 10, 10, 10, 10, 10, 10)
 
 
 def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS):
@@ -562,50 +603,63 @@ def train_kernels_phase() -> dict:
             el * (2 * rows * D_MODEL + 3 * used * D_MODEL * D_FF),
             3 * 2 * live * D_MODEL * D_FF, 1e-4)],
     }
-    # the EP path's layouts (phase "train (EP, 2 ranks)"): rank 0's received
-    # rows from 2 source blocks with -1 gaps, 4 local experts' weights
-    ep_plan, ep_rows, ep_R, ep_e, ep_send = _ep_rank_layout(gen, dev)
-    ep_live = int(ep_plan.total_rows)
-    ep_used = torch.unique(ep_plan.block_to_expert[:ep_live // BLOCK_M]).numel()
-    ep_pos = invert_slots(ep_plan.slots, ep_R)
-    ep_src = torch.where(ep_pos >= 0, ep_pos, -1).to(torch.int32)
-    ep_read = int(((ep_src >= 0) & (torch.arange(ep_R, device=dev) < ep_live)).sum())
-    ep_x = randn((ep_rows, D_MODEL))
-    ep_buf = ref.scatter_rows_ref(ep_x, ep_src, ep_plan.total_rows)
-    ep_w = (w1[:ep_e], w3[:ep_e], w2[:ep_e])
-    ep_b2e, ep_total = ep_plan.block_to_expert, ep_plan.total_rows
-    ep_label = f"EP rank: {ep_read} of {ep_rows} received rows live, R={ep_R}, E_local={ep_e}"
-    cases["scatter_rows"].append((
-        f"{ep_label} (receive dispatch)", dc.scatter_rows,
-        ref.scatter_rows_ref, (ep_x, ep_src, ep_total), None,
-        el * (ep_read + ep_R) * D_MODEL + 4 * ep_R, 0, 0.0))
-    ep_t = ep_send.shape[0]
-    cases["gather_combine"].append((
-        f"EP rank: T={ep_t} K={TOP_K} from {ep_rows} returned rows d={D_MODEL} "
-        f"(EP combine)", dc.gather_combine, ref.gather_combine_ref,
-        (ep_x, ep_send, weights[:ep_t]),
-        lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
-                                               per_sample_weights=w),
-        el * (ep_t * TOP_K + ep_t) * D_MODEL, 2 * ep_t * TOP_K * D_MODEL, 1e-6))
-    cases["ragged_swiglu"].append((
-        ep_label, ragged_swiglu,
-        lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
-        (ep_buf, ep_w[0], ep_w[1], ep_b2e, ep_total, BLOCK_M), None,
-        el * (ep_live * D_MODEL + 2 * ep_used * D_MODEL * D_FF + ep_R * D_FF),
-        2 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
-    cases["ragged_matmul"].append((
-        f"{ep_label}, @ w1", ragged_matmul,
-        lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
-        (ep_buf, ep_w[0], ep_b2e, ep_total, BLOCK_M), None,
-        el * (ep_live * D_MODEL + ep_used * D_MODEL * D_FF + ep_R * D_FF),
-        2 * ep_live * D_MODEL * D_FF, 1e-4))
-    cases["fused_moe"].append((
-        ep_label, fused_moe,
-        lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
-            x, a, b, c, src, ws, bb, tot),
-        (ep_x, *ep_w, ep_src, torch.ones(ep_R, device=dev), ep_total, ep_b2e), None,
-        el * (2 * ep_rows * D_MODEL + 3 * ep_used * D_MODEL * D_FF),
-        3 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
+    # the EP path's layouts: rank 0's received rows from 2 source blocks with
+    # -1 gaps, over 4 local experts' weights (phase "train (EP, 2 ranks)")
+    # and over 5 weight slots under a placement with a replica slot per rank
+    # (phase "train (adaptive + placement, 2 ranks)")
+    from repro_torch.core.placement import plan_placement
+    layouts = []
+    for spec, what in ((None, "EP rank"),
+                       (plan_placement(PLACED_LOAD, EP_MESH[1], replicas=1),
+                        "placed EP rank")):
+        ep_plan, ep_rows, ep_R, ep_e, ep_send, experts = _ep_rank_layout(gen, dev, spec)
+        ep_live = int(ep_plan.total_rows)
+        ep_used = torch.unique(ep_plan.block_to_expert[:ep_live // BLOCK_M]).numel()
+        ep_pos = invert_slots(ep_plan.slots, ep_R)
+        ep_src = torch.where(ep_pos >= 0, ep_pos, -1).to(torch.int32)
+        ep_read = int(((ep_src >= 0) & (torch.arange(ep_R, device=dev) < ep_live)).sum())
+        ep_x = randn((ep_rows, D_MODEL))
+        ep_buf = ref.scatter_rows_ref(ep_x, ep_src, ep_plan.total_rows)
+        idx = torch.as_tensor(experts, device=dev)
+        ep_w = tuple(w.index_select(0, idx) for w in (w1, w3, w2))
+        ep_b2e, ep_total = ep_plan.block_to_expert, ep_plan.total_rows
+        ep_label = (f"{what}: {ep_read} of {ep_rows} received rows live, R={ep_R}, "
+                    f"E_local={ep_e}")
+        if spec is not None:
+            ep_label += f" (slots hold experts {experts})"
+        cases["scatter_rows"].append((
+            f"{ep_label} (receive dispatch)", dc.scatter_rows,
+            ref.scatter_rows_ref, (ep_x, ep_src, ep_total), None,
+            el * (ep_read + ep_R) * D_MODEL + 4 * ep_R, 0, 0.0))
+        ep_t = ep_send.shape[0]
+        cases["gather_combine"].append((
+            f"{what}: T={ep_t} K={TOP_K} from {ep_rows} returned rows d={D_MODEL} "
+            f"(EP combine)", dc.gather_combine, ref.gather_combine_ref,
+            (ep_x, ep_send, weights[:ep_t]),
+            lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
+                                                   per_sample_weights=w),
+            el * (ep_t * TOP_K + ep_t) * D_MODEL, 2 * ep_t * TOP_K * D_MODEL, 1e-6))
+        cases["ragged_swiglu"].append((
+            ep_label, ragged_swiglu,
+            lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
+            (ep_buf, ep_w[0], ep_w[1], ep_b2e, ep_total, BLOCK_M), None,
+            el * (ep_live * D_MODEL + 2 * ep_used * D_MODEL * D_FF + ep_R * D_FF),
+            2 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
+        cases["ragged_matmul"].append((
+            f"{ep_label}, @ w1", ragged_matmul,
+            lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+            (ep_buf, ep_w[0], ep_b2e, ep_total, BLOCK_M), None,
+            el * (ep_live * D_MODEL + ep_used * D_MODEL * D_FF + ep_R * D_FF),
+            2 * ep_live * D_MODEL * D_FF, 1e-4))
+        cases["fused_moe"].append((
+            ep_label, fused_moe,
+            lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
+                x, a, b, c, src, ws, bb, tot),
+            (ep_x, *ep_w, ep_src, torch.ones(ep_R, device=dev), ep_total, ep_b2e), None,
+            el * (2 * ep_rows * D_MODEL + 3 * ep_used * D_MODEL * D_FF),
+            3 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
+        layouts.append((ep_buf, ep_b2e, ep_total, ep_live, ep_R, ep_e, ep_label))
+        del ep_x, ep_w
     replaces = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
                 "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
                 "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
@@ -680,19 +734,21 @@ def train_kernels_phase() -> dict:
             **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
-    del w1, w3, w2, x_rows, x_chunk, wrow, ep_x, ep_w
+    del w1, w3, w2, x_rows, x_chunk, wrow
     torch.cuda.empty_cache()
     entries["segment_outer"] = weight_grad_kernel(buf, h, b2e, total, live, offs, gen)
     del buf, h
     torch.cuda.empty_cache()
-    ep_h = randn((ep_R, D_FF)) * (torch.arange(ep_R, device=dev) < ep_live)[:, None]
-    ep_offs = (torch.bincount(ep_b2e[:ep_live // BLOCK_M].long(), minlength=ep_e)
-               .cumsum(0) * BLOCK_M).to(torch.int32)
-    entries["segment_outer"]["shapes"] += weight_grad_kernel(
-        ep_buf, ep_h, ep_b2e, ep_total, ep_live, ep_offs, gen, n_experts=ep_e,
-        tag=f"{ep_label}: ")["shapes"]
-    del ep_buf, ep_h
-    torch.cuda.empty_cache()
+    while layouts:
+        ep_buf, ep_b2e, ep_total, ep_live, ep_R, ep_e, ep_label = layouts.pop(0)
+        ep_h = randn((ep_R, D_FF)) * (torch.arange(ep_R, device=dev) < ep_live)[:, None]
+        ep_offs = (torch.bincount(ep_b2e[:ep_live // BLOCK_M].long(), minlength=ep_e)
+                   .cumsum(0) * BLOCK_M).to(torch.int32)
+        entries["segment_outer"]["shapes"] += weight_grad_kernel(
+            ep_buf, ep_h, ep_b2e, ep_total, ep_live, ep_offs, gen, n_experts=ep_e,
+            tag=f"{ep_label}: ")["shapes"]
+        del ep_buf, ep_h
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -989,9 +1045,10 @@ def report_training(trainer, wall: float, launches: dict, steps: int) -> dict:
     return report
 
 
-def fwd_bwd_peaks(trainer, state, who: str = "") -> tuple:
+def fwd_bwd_peaks(trainer, state, who: str = "", placements=None) -> tuple:
     """The peak of one forward + backward (no optimizer) above what is
-    already allocated, at MACT's (chunks, depth), at (2, 1) and at (1, 1),
+    already allocated, at MACT's (chunks, depth), at (2, 1) and at (1, 1)
+    (each under ``placements``, a placement vector, when given),
     beside MACT's modeled activation bytes for the trainer's leg (Eq. 2;
     fused=False keeps the dispatch buffer's 2h term), on this rank's rows of
     the step's batch.  Returns {schedule: peak bytes} and the card's memory
@@ -1001,6 +1058,7 @@ def fwd_bwd_peaks(trainer, state, who: str = "") -> tuple:
     from repro_torch.training.step import loss_fn
 
     s_pp = trainer.mact.history[-1]["s_pp"]
+    s_pp = max(s_pp) if isinstance(s_pp, list) else s_pp     # per layer: the binding one
     batch = {k: torch.as_tensor(v[trainer._rows], device=trainer.ctx.device)
              for k, v in trainer.data.batch_at(0).items()}
     leaves = param_list(state.params)
@@ -1013,8 +1071,8 @@ def fwd_bwd_peaks(trainer, state, who: str = "") -> tuple:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        loss, _ = loss_fn(state.params, trainer.cfg, trainer._context(chunks, depth),
-                          batch)
+        key = (chunks, depth) if placements is None else ((chunks, depth), placements)
+        loss, _ = loss_fn(state.params, trainer.cfg, trainer._context_for(key)[1], batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
@@ -1160,13 +1218,13 @@ def _exchange_ms(trainer, mesh) -> tuple:
     return cap, 1e3 * (time.perf_counter() - t0) / 10
 
 
-def _split_steps(spans: list, events: list) -> list:
+def _split_steps(spans: list, events: list, kinds=("exchange", "all_reduce")) -> list:
     """Each step's wall seconds, and the host seconds, calls and bytes of
-    its exchanges and all-reduces."""
+    each kind of its collectives (exchanges and all-reduces)."""
     out = []
     for t0, t1 in spans:
         step = {"wall": t1 - t0}
-        for kind in ("exchange", "all_reduce"):
+        for kind in kinds:
             mine = [e for e in events if e[2] == kind and t0 <= e[0] < t1]
             step[kind] = {"s": sum(e[1] for e in mine), "calls": len(mine),
                           "bytes": sum(e[3] for e in mine)}
@@ -1384,6 +1442,328 @@ def train_ep_phase(one_peer_ce: float) -> dict:
         raise SystemExit("the 2-rank run's step-1 ce differs from the one-peer run's")
     print(f"the card's memory in use at the busiest sample (both ranks, all processes): "
           f"{max(used) / 1e9:.2f} GB", flush=True)
+    return launches
+
+
+# the adaptive + placement phase: the EP phase's model, mesh and batch on the
+# fused leg, layer 0's routing skewed toward experts 0 and 1 (which identity
+# places together on rank 0), three planner configurations through the entry
+# point and the placed one again on the ragged leg through Trainer.  The skew:
+# layer 0's router zeroed after init, so every score ties at step 1 and top-2
+# (a stable sort, as lax.top_k) sends every token to experts 0 and 1; AdamW
+# moves the router from there
+ADAPT_STEPS = 5
+ADAPT_MIN_IMBALANCE = 1.5
+ADAPT_TIMEOUT_S = 900
+_STEPS_AT = TRAIN_ARGS.index("--steps") + 1
+ADAPT_ARGS = (TRAIN_ARGS[:_STEPS_AT] + [str(ADAPT_STEPS)] + TRAIN_ARGS[_STEPS_AT + 1:]
+              + ["--mesh", "x".join(map(str, EP_MESH))])
+PLACED = ["--adaptive-mact", "--placement", "--placement-replicas", "1"]
+ADAPT_RUNS = (("global MACT", []), ("adaptive", ["--adaptive-mact"]),
+              ("adaptive + placement", PLACED),
+              ("adaptive + placement, ragged leg", PLACED))
+# each kernel's layout key: the weight slots it multiplies (expert kernels)
+# or its rows (dispatch kernels), read from its arguments as ops.py calls it
+LAYOUT_OF = {"fused_moe": lambda x, w1, *r, **k: ("slots", w1.shape[0]),
+             "ragged_matmul": lambda x, w, *r, **k: ("slots", w.shape[0]),
+             "ragged_swiglu": lambda x, w1, *r, **k: ("slots", w1.shape[0]),
+             "segment_outer": lambda a, b, b2e, rows, bm, out, **k: ("slots", out.shape[0]),
+             "scatter_rows": lambda x, src, *r, **k: ("rows", src.shape[0]),
+             "gather_combine": lambda buf, *r, **k: ("rows", buf.shape[0])}
+
+
+def _ragged_rows(slots: int, chunks: int) -> int:
+    """R of an EP rank's ragged layout in the adaptive phase: P cap_send
+    received rows (cap_send = t_c min(k, slots), t_c one 2048-token
+    sequence over the chunks) plus a row block per slot."""
+    cap = T_CHUNK // chunks * min(TOP_K, slots)
+    return -(-(EP_MESH[1] * cap + slots * BLOCK_M) // BLOCK_M) * BLOCK_M
+
+
+def _adaptive_rank(rank: int, ports: list, out_dir: str) -> None:
+    """One rank of the adaptive + placement phase, started as torchrun
+    starts one.  Runs ADAPT_RUNS in turn and writes what it saw to
+    out_dir/rank<r>.json.  Each run through the entry point joins a process
+    group of its own (the store at ``ports[i]``); the ragged run reuses the
+    placed run's mesh."""
+    import gc
+    import os
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(EP_RANKS),
+                      LOCAL_WORLD_SIZE=str(EP_RANKS), MASTER_ADDR="localhost")
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import memory_model as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._cuda import wrappers
+    from repro_torch.launch import train
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # measurement only: host time and bytes inside each collective (the
+    # weight exchange is the one with splits), each step's span and loads,
+    # each dispatch plan's rows per peer, and each kernel call's layout
+    events, spans, loads, sent, layouts = [], [], [], [], {}
+
+    def timed(kind, real):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            t = args[1] if kind == "exchange" else args[0]
+            what = ("weights" if kind == "exchange" and kw.get("input_split_sizes")
+                    else kind)
+            events.append((t0, time.perf_counter() - t0, what,
+                           t.numel() * t.element_size()))
+            return out
+        return call
+
+    dist.all_to_all_single = timed("exchange", dist.all_to_all_single)
+    dist.all_reduce = timed("all_reduce", dist.all_reduce)
+    real_plan = dsp.make_unified_plan
+
+    def plan(ids, groups, peers=1, **kw):
+        up = real_plan(ids, groups, peers, **kw)
+        if peers > 1:                      # rows this rank sends each peer
+            sent.append((time.perf_counter(), up.counts.sum(1)))
+        return up
+
+    dsp.make_unified_plan = plan
+
+    def recorder(name, real):
+        def call(*args, **kw):
+            layouts.setdefault(name, set()).add(LAYOUT_OF[name](*args, **kw))
+            return real(*args, **kw)
+        return call
+
+    for name in LAYOUT_OF:
+        setattr(ops, name, recorder(name, getattr(ops, name)))
+    real_init, real_step = trainer_mod.init_train_state, trainer_mod.make_train_step
+
+    def skewed_init(*args, **kw):
+        state = real_init(*args, **kw)
+        with torch.no_grad():
+            state.params["layers"][0]["ffn"]["router"]["w"].zero_()
+        return state
+
+    def make_step(*args, **kw):
+        step = real_step(*args, **kw)
+
+        def run(state, batch):
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            float(out[1]["loss"])              # the trainer's own sync point
+            spans.append((t0, time.perf_counter()))
+            loads.append(out[1]["load_per_layer"])
+            return out
+        return run
+
+    trainer_mod.init_train_state = skewed_init
+    trainer_mod.make_train_step = make_step
+    rec = {"rank": rank}
+    try:
+        for name, flags in ADAPT_RUNS:
+            for fn in wrappers():
+                fn.launches = 0
+            for lst in (events, spans, loads, sent):
+                lst.clear()
+            layouts.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if "ragged" not in name:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                os.environ["MASTER_PORT"] = str(ports.pop(0))
+                trainer, state = train.main(ADAPT_ARGS + flags)
+                kw = {k: getattr(trainer, k) for k in (
+                    "seq_len", "global_batch", "lr", "seed", "dtype", "max_pipeline_depth",
+                    "adaptive_mact", "use_placement", "placement_replicas")}
+                cfg, ctx = trainer.cfg, trainer.ctx
+            else:
+                trainer = Trainer(cfg, dataclasses.replace(ctx, moe_fused=False,
+                                                           moe_ragged=True), **kw)
+                state = trainer.fit(ADAPT_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in wrappers()}
+            vecs = ([[list(s) for s in v] for v in trainer.schedule_trace]
+                    or [[[c, d]] * 2 for c, d in zip(trainer.chunk_trace,
+                                                      trainer.pipeline_trace)])
+            # each step's forward plans come first, layer by layer
+            recv = []
+            for (a, b), vec in zip(spans, vecs):
+                calls = [c.tolist() for t, c in sent if a <= t < b]
+                layer, at = [], 0
+                for chunks, _ in vec:
+                    layer.append(np.sum(calls[at:at + chunks], axis=0).tolist())
+                    at += chunks
+                recv.append(layer)
+            s_pp = trainer.mact.history[-1]["s_pp"]
+            s_pp = max(s_pp) if isinstance(s_pp, list) else s_pp
+            last = trainer.log[-1]
+            report = trainer.mact.memory_report(s_pp, last["chunks"], last["pipeline"])
+            replica = mm.replica_weight_bytes(cfg, trainer.mact.replica_slots, trainer.par)
+            out = {"log": trainer.log, "schedules": vecs, "wall_s": wall,
+                   "placements": [r["placements"] for r in trainer.placement_trace],
+                   "replans": [{k: v for k, v in r.items() if k != "placements"}
+                               for r in trainer.placement_trace],
+                   "launches": launches,
+                   "layouts": {k: sorted(v) for k, v in layouts.items()},
+                   "sent": recv, "loads": [t.cpu().tolist() for t in loads],
+                   "steps": _split_steps(spans, events, ("exchange", "weights",
+                                                         "all_reduce")),
+                   "max_memory_allocated": trainer.max_memory_allocated,
+                   "modeled_bytes": report["total_gb"] * 2**30,
+                   "replica_bytes": replica}
+            if trainer.use_placement:
+                placements = trainer._placements
+                peaks, _ = fwd_bwd_peaks(trainer, state, who=f"rank {rank} ({name}, placed): ",
+                                         placements=placements)
+                ident, _ = fwd_bwd_peaks(trainer, state, who=f"rank {rank} ({name}, identity): ")
+                out["peaks"] = {f"{c},{d}": v for (c, d), v in peaks.items()}
+                out["peaks_identity"] = {f"{c},{d}": v for (c, d), v in ident.items()}
+            rec[name] = out
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train_adaptive_phase() -> dict:
+    """Drive launch/train.py on a 1x2 mesh (2 ranks on the one card over
+    gloo) with global MACT, adaptive MACT, and adaptive MACT with expert
+    placement, then the placed run on the ragged leg through Trainer;
+    returns the path's launch counts, summed over ranks and runs."""
+    phase("train (adaptive + placement, 2 ranks)")
+    import gc
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ports = set()
+        while len(ports) < sum("ragged" not in name for name, _ in ADAPT_RUNS):
+            ports.add(_free_port())
+        _run_ranks(_adaptive_rank, EP_RANKS, (sorted(ports), tmp), ADAPT_TIMEOUT_S)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(EP_RANKS)]
+    print(f"phase {time.perf_counter() - t0:.1f} s (rank start-up and weights included); "
+          f"layer 0's router zeroed after init (step 1 sends every token to experts 0 "
+          f"and 1)", flush=True)
+    launches = {}
+    E_local = E // EP_MESH[1]
+    strip = lambda log: [{k: v for k, v in s.items() if k not in ("time_s", "tgs")}  # noqa: E731
+                         for s in log]
+    for name, _ in ADAPT_RUNS:
+        recs = [r[name] for r in ranks]
+        first = recs[0]
+        leg = "ragged" if "ragged" in name else "fused"
+        bad = [(r, s) for r, rec in enumerate(recs) for s in rec["log"]
+               if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+        if bad or any(len(rec["log"]) != ADAPT_STEPS for rec in recs):
+            raise SystemExit(f"{name}: non-finite losses or grad norms, or missing steps: "
+                             f"{bad}")
+        if any((rec["schedules"], rec["placements"], strip(rec["log"]))
+               != (first["schedules"], first["placements"], strip(first["log"]))
+               for rec in recs[1:]):
+            raise SystemExit(f"{name}: the ranks' schedules, placements or metrics differ")
+        # received token-slots: what both ranks sent each rank, per layer
+        recv = [[[sum(rec["sent"][i][layer][p] for rec in recs)
+                  for p in range(EP_MESH[1])] for layer in range(2)]
+                for i in range(ADAPT_STEPS)]
+        for i, step in enumerate(first["log"]):
+            lpl = np.asarray(first["loads"][i], dtype=np.float64)
+            imb = lpl.max(1) / lpl.mean(1)
+            ex, wx, ar = (first["steps"][i][k] for k in ("exchange", "weights", "all_reduce"))
+            print(f"{name}, step {step['step']}: loss {step['loss']:.6f} (ce "
+                  f"{step['ce']:.6f}), grad_norm {step['grad_norm']:.4f}, schedules "
+                  f"{[tuple(v) for v in first['schedules'][i]]}, {step['time_s']:.3f} s; "
+                  + "; ".join(f"layer {j}: imbalance {imb[j]:.3f}, received token-slots "
+                              f"{recv[i][j]} (hottest rank {max(recv[i][j]):.0f})"
+                              for j in range(2))
+                  + f"; weight exchange {wx['calls']} calls, {wx['bytes'] / 1e6:.1f} MB, "
+                  f"{1e3 * wx['s']:.1f} ms; row exchanges {1e3 * ex['s']:.1f} ms; "
+                  f"all-reduces {1e3 * ar['s']:.1f} ms; the rest "
+                  f"{1e3 * (step['time_s'] - ex['s'] - wx['s'] - ar['s']):.1f} ms (rank 0)",
+                  flush=True)
+        warm = [s["time_s"] for s in first["log"][1:]]
+        print(f"{name}: schedule vectors {[[tuple(v) for v in vec] for vec in first['schedules']]}; "
+              f"warm steps {min(warm):.3f}-{max(warm):.3f} s ({EP_LABEL})", flush=True)
+        for r, rec in enumerate(recs):
+            print(f"{name}, rank {r}: max_memory_allocated "
+                  f"{rec['max_memory_allocated'] / 1e9:.2f} GB against MACT's per-rank "
+                  f"model {rec['modeled_bytes'] / 1e9:.2f} GB + replica slots "
+                  f"{rec['replica_bytes'] / 1e9:.2f} GB = "
+                  f"{(rec['modeled_bytes'] + rec['replica_bytes']) / 1e9:.2f} GB; launches "
+                  f"{ {k: n for k, n in rec['launches'].items() if n} }", flush=True)
+            for name_k, n in rec["launches"].items():
+                if n:
+                    launches[name_k] = launches.get(name_k, 0) + n
+        if "placement" not in name:
+            continue
+        for rep in first["replans"]:
+            print(f"{name}: replan before step {rep['step'] + 1}: migrated_slots "
+                  f"{rep['migrated_slots']}, {rep['migrated_bytes'] / 1e6:.1f} MB a step "
+                  f"through the weight exchange, identity {rep['identity']}, imbalance "
+                  f"{rep['imbalance']}", flush=True)
+        print(f"{name}: placements {first['placements'][-1]}", flush=True)
+        for r, rec in enumerate(recs):
+            gap = {k: rec["peaks"][k] - rec["peaks_identity"][k] for k in rec["peaks"]}
+            print(f"{name}, rank {r}: forward + backward peak with the placement above the "
+                  f"same schedule at identity (slot copies, their gradients and the "
+                  f"exchange's buffers, which MACT does not price): "
+                  + ", ".join(f"({k}) {v / 1e9:+.3f} GB" for k, v in gap.items()), flush=True)
+            check_peaks({tuple(map(int, k.split(","))): v for k, v in rec["peaks"].items()},
+                        who=f"{name}, rank {r}: ")
+        places = first["placements"]
+        if len(places) < 2 or places[1][0] == list(range(E)):
+            raise SystemExit(f"{name}: layer 0's placement is still identity after the "
+                             f"first replan: {places}")
+        if any(p[1] != list(range(E)) for p in places):
+            raise SystemExit(f"{name}: layer 1's placement moved: {places}")
+        slots = len(places[-1][0]) // EP_MESH[1]
+        r5 = {_ragged_rows(slots, c) for c in (1, 2, 4, 8)}
+        for r, rec in enumerate(recs):
+            missing = [k for k in EP_KERNELS[leg]
+                       if not any((kind == "slots" and v == slots)
+                                  or (kind == "rows" and v in r5)
+                                  for kind, v in rec["layouts"].get(k, []))]
+            if missing:
+                raise SystemExit(f"{name}, rank {r}: kernels not launched at the "
+                                 f"{slots}-slot layout: {missing} (layouts seen "
+                                 f"{rec['layouts']})")
+        before, after = max(recv[0][0]), max(recv[-1][0])
+        print(f"{name}: layer 0's hottest rank received {before:.0f} token-slots at "
+              f"step 1 (identity) and {after:.0f} at step {ADAPT_STEPS} (placed, "
+              f"{slots} slots a rank, E_local {E_local} before)", flush=True)
+        if not after < before:
+            raise SystemExit(f"{name}: layer 0's hottest rank received no fewer "
+                             f"token-slots after the replan")
+    glob, placed = (ranks[0][n]["log"][0] for n in ("global MACT", "adaptive + placement"))
+    imb0 = np.asarray(ranks[0]["global MACT"]["loads"][0], dtype=np.float64)
+    imb0 = float(imb0[0].max() / imb0[0].mean())
+    keys = ("loss", "ce", "aux", "grad_norm", "max_load", "drops", "chunks", "pipeline")
+    same = [glob[k] for k in keys] == [placed[k] for k in keys]
+    print(f"step 1: layer 0's imbalance {imb0:.3f} (at least {ADAPT_MIN_IMBALANCE}); the "
+          f"placed run's step 1 (identity at cold start) "
+          f"{'equals' if same else 'DIFFERS from'} the global run's bit for bit "
+          f"(loss {placed['loss']!r} / {glob['loss']!r}, grad_norm "
+          f"{placed['grad_norm']!r} / {glob['grad_norm']!r})", flush=True)
+    if imb0 < ADAPT_MIN_IMBALANCE:
+        raise SystemExit(f"layer 0's step-1 imbalance {imb0:.3f} is below "
+                         f"{ADAPT_MIN_IMBALANCE}: the skew did not take")
+    if not same:
+        raise SystemExit("the placed run's first step differs from the global run's")
     return launches
 
 
@@ -2037,7 +2417,7 @@ def check_phase() -> None:
             _run_ranks(_check_rank, 4, (f"file://{tmp}/store-{dev}", dev, tmp), 300)
             runs[dev] = [json.loads(Path(tmp, f"{dev}{r}.json").read_text())
                          for r in range(4)]
-    for leg in ("fused", "ragged"):
+    for leg in ("fused", "ragged", "placed"):
         got = {dev: [rec[leg] for rec in recs] for dev, recs in runs.items()}
         losses = {dev: recs[0]["losses"] for dev, recs in got.items()}
         dloss = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
@@ -2049,7 +2429,19 @@ def check_phase() -> None:
               f"losses card {losses['cuda']} cpu {losses['cpu']}, max |card - cpu| = "
               f"{dloss:.3e}; schedules {sorted(traces)}; equal on every rank: "
               f"{same_ranks}", flush=True)
-        tol = 1e-4 if leg == "fused" else 1e-5
+        tol = 1e-5 if leg == "ragged" else 1e-4
+        plans = {json.dumps([r["schedules"], r["placements"]])
+                 for recs in got.values() for r in recs}
+        if leg == "placed":
+            first = got["cuda"][0]
+            print(f"  placed: layer 0's router zeroed (every token on experts 0 and 1), "
+                  f"adaptive MACT, a replica slot per rank: schedule vectors "
+                  f"{first['schedules']}, placements {first['placements']}; equal on every "
+                  f"rank of both meshes: {len(plans) == 1}", flush=True)
+            moved = first["placements"][-1][0] != list(range(cfg.moe.num_experts))
+            if len(plans) != 1 or not moved:
+                raise SystemExit("the 2x2 mesh's placed run: the card's schedules or "
+                                 "placements differ from the CPU's, or layer 0 did not move")
         if len(traces) != 1 or not same_ranks or not dloss <= tol:
             raise SystemExit(f"the 2x2 mesh's reduced training run of the {leg} leg: the "
                              f"card disagrees with the CPU (tolerance {tol}), or the "
@@ -2058,7 +2450,9 @@ def check_phase() -> None:
 
 def _check_rank(rank: int, store: str, device: str, out_dir: str) -> None:
     """One rank of check_phase's 2x2 mesh: 2 reduced fp32 training steps on
-    each leg from the same weights as the one-peer check, on ``device``."""
+    each leg from the same weights as the one-peer check, and on the fused
+    leg with adaptive MACT and expert placement (a replica slot per rank)
+    on skewed routing, on ``device``."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2076,14 +2470,23 @@ def _check_rank(rank: int, store: str, device: str, out_dir: str) -> None:
         mesh = mesh_lib.make_host_mesh((2, 2))
         cfg = get_config("mixtral-8x7b").reduced()
         rec = {}
-        for leg in ("fused", "ragged"):
+        for leg in ("fused", "ragged", "placed"):
             ctx = DistContext(device=dev, moe_strategy="ep_shardmap", mesh=mesh,
-                              moe_fused=leg == "fused", moe_ragged=leg == "ragged")
+                              moe_fused=leg != "ragged", moe_ragged=leg == "ragged")
             params = transformer.init_params(cfg, device="cpu", seed=2, mesh=mesh)
-            trainer = Trainer(cfg, ctx, seq_len=128, global_batch=4, lr=1e-3)
+            planner = {}
+            if leg == "placed":
+                # a zero router ties every score: top-2 sends each token to
+                # experts 0 and 1, which identity places on one rank
+                params["layers"][0]["ffn"]["router"]["w"].zero_()
+                planner = dict(adaptive_mact=True, use_placement=True,
+                               placement_replicas=1)
+            trainer = Trainer(cfg, ctx, seq_len=128, global_batch=4, lr=1e-3, **planner)
             trainer.fit(2, make_train_state(_to(params, dev)))
             rec[leg] = {"losses": [r["loss"] for r in trainer.log],
-                        "chunks": trainer.chunk_trace, "pipeline": trainer.pipeline_trace}
+                        "chunks": trainer.chunk_trace, "pipeline": trainer.pipeline_trace,
+                        "schedules": [[list(s) for s in v] for v in trainer.schedule_trace],
+                        "placements": [r["placements"] for r in trainer.placement_trace]}
         Path(out_dir, f"{device}{rank}.json").write_text(json.dumps(rec))
     finally:
         if dist.is_initialized():
@@ -2121,6 +2524,7 @@ def main() -> int:
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
     paths["train (EP, 2 ranks)"] = train_ep_phase(ce)
+    paths["train (adaptive + placement, 2 ranks)"] = train_adaptive_phase()
     paths["train (resilience)"] = train_resilience_phase()
     check_phase()
     for path, launches in paths.items():

@@ -26,8 +26,24 @@ reference's ``pmean``/``psum`` over every mesh axis make them: ``load`` and
 each rank's own aux.  That mean is a replicated value whose backward passes
 each rank's gradient through unchanged (``_Replicated``), so when a train
 step sums the dense gradients over the ranks, each rank's aux term counts
-once: the router's gradient is the gradient of the mean.  Expert placement
-is not ported yet.
+once: the router's gradient is the gradient of the mean.
+
+Expert placement (``placement``, core/placement.py): the dispatch groups
+are weight slots, not expert ids.  Each rank keeps its E / P canonical
+experts (and AdamW's moments with them); once per layer per step, before
+the FCDA chunk loop, ``_GatherSlots`` builds the rank's ``slots_per_peer``
+slot weights: a slot whose expert this rank owns is read from the local
+tensor, the others arrive in one exchange of variable splits
+(``Mesh.all_to_all_v``).  That gather is the JAX package's global
+``w[slot_to_expert]``; its backward, run once after every chunk's, sends
+each received slot's gradient back to its owner and adds every replica's
+gradient into the canonical rows, as the gather's transpose does there.
+Routing maps each chunk's expert ids to slot ids
+(``place_expert_idx``), so the planner, the kernels' ``E_local`` and the
+ragged R follow ``slots_per_peer``.  An identity spec is the unplaced path
+bit for bit; a spec for another peer count than the EP group's is planned
+and priced by the trainer but not applied (at one peer the JAX package runs
+its local path, which ignores placement).
 
 The local expert leg is one of:
 
@@ -47,11 +63,15 @@ Both ragged-layout legs train.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import dispatch as dsp
 from repro_torch.core.chunking import ChunkStages, chunked_pipeline
+from repro_torch.core.placement import PlacementSpec, place_expert_idx
 from repro_torch.core.router import route
 from repro_torch.kernels.ops import (combine_rows, dispatch_rows, expert_ffn,
                                      ragged_expert_ffn, shared_weight_grads)
@@ -112,6 +132,134 @@ def _world_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     return t if mesh is None else mesh.all_reduce_(t.detach().clone())
 
 
+class SlotRoutes(NamedTuple):
+    """How one EP rank builds its slot weights under a placement.  Rows are
+    expert rows of the rank's canonical (E / P, ...) tensor; positions are
+    slots of the rank's (slots_per_peer, ...) slot tensor."""
+    own_pos: tuple       # slots whose expert this rank owns ...
+    own_rows: tuple      # ... and those experts' canonical rows
+    recv_pos: tuple      # slots filled by the exchange, in arrival order
+    send_rows: tuple     # canonical rows this rank sends, peer-major
+    send_splits: tuple   # rows sent to each peer
+    recv_splits: tuple   # rows received from each peer
+    exchange: bool       # whether any rank of the group receives a slot
+    view: bool           # the slot tensor is the canonical tensor itself
+
+
+@functools.lru_cache(maxsize=64)
+def slot_routes(spec: PlacementSpec, j: int) -> SlotRoutes:
+    """``SlotRoutes`` of the rank at model index ``j``: the slots of peer q
+    whose expert peer p owns (p != q) travel from p to q in q's slot
+    order."""
+    P, spp = spec.num_peers, spec.slots_per_peer
+    e_local = spec.num_experts // P
+    s2e = spec.slot_to_expert
+
+    def hosted(q):
+        """(slot position, expert, owner) of peer q's slots."""
+        return [(pos, s2e[q * spp + pos], s2e[q * spp + pos] // e_local)
+                for pos in range(spp)]
+
+    mine = hosted(j)
+    own = [(pos, e - j * e_local) for pos, e, o in mine if o == j]
+    recv = [[pos for pos, _, o in mine if o == p and p != j] for p in range(P)]
+    send = [[e - j * e_local for _, e, o in hosted(q) if o == j and q != j]
+            for q in range(P)]
+    exchange = any(o != q for q in range(P) for _, _, o in hosted(q))
+    return SlotRoutes(
+        own_pos=tuple(p for p, _ in own), own_rows=tuple(r for _, r in own),
+        recv_pos=tuple(p for ps in recv for p in ps),
+        send_rows=tuple(r for rs in send for r in rs),
+        send_splits=tuple(len(rs) for rs in send),
+        recv_splits=tuple(len(ps) for ps in recv), exchange=exchange,
+        view=spp == e_local and [r for _, r in own] == list(range(spp)))
+
+
+def _index(rows, device) -> torch.Tensor:
+    return torch.as_tensor(rows, dtype=torch.long, device=device)
+
+
+def _rows(t: torch.Tensor, rows) -> torch.Tensor:
+    """Rows ``rows`` of ``t``, as a new tensor."""
+    return t.index_select(0, _index(rows, t.device))
+
+
+class _GatherSlots(torch.autograd.Function):
+    """The canonical expert weights (E / P, ...) -> this rank's slot
+    weights (slots_per_peer, ...), one weight at a time, so that only one
+    weight's exchange buffers exist at once.  The backward returns each
+    received slot's gradient to the expert's owner and sums every slot's
+    gradient into its canonical row, the rank's own slot first, then the
+    returned ones in peer order.  It writes the canonical gradient into
+    the first E / P rows of the slot gradient's own buffer (the layer's
+    shared buffer, ``kernels/ops.py::WeightGrads``) and returns that view,
+    so a placed layer holds no second gradient of its experts."""
+
+    @staticmethod
+    def forward(ctx, mesh, routes, *ws):
+        ctx.mesh, ctx.routes = mesh, routes
+        ctx.e_local = ws[0].shape[0]
+        outs = []
+        for w in ws:
+            recv = None
+            if routes.exchange:
+                recv = mesh.all_to_all_v(_rows(w, routes.send_rows), routes.send_splits,
+                                         routes.recv_splits)
+            if routes.view:
+                # every slot holds this rank's own expert, in canonical order
+                outs.append(w.view_as(w))
+                continue
+            out = w.new_empty((len(routes.own_pos) + len(routes.recv_pos),)
+                              + tuple(w.shape[1:]))
+            out.index_copy_(0, _index(routes.own_pos, w.device), _rows(w, routes.own_rows))
+            if recv is not None:
+                out.index_copy_(0, _index(routes.recv_pos, w.device), recv)
+            outs.append(out)
+            del recv
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, r = ctx.mesh, ctx.routes
+        dws = []
+        for g in gs:
+            back = None
+            if r.exchange:
+                back = mesh.all_to_all_v(_rows(g, r.recv_pos), r.recv_splits,
+                                         r.send_splits)
+            if r.view:
+                dws.append(g)
+                continue
+            own = _rows(g, r.own_pos)
+            dw = g[:ctx.e_local]               # the slot rows are all read by now
+            dw.zero_()
+            dw.index_copy_(0, _index(r.own_rows, g.device), own)
+            del own
+            if back is not None:
+                # row by row, in peer order: a fixed order of the sums (an
+                # index_add_ on the card adds duplicate rows atomically)
+                for n, row in enumerate(r.send_rows):
+                    dw[row] += back[n]
+            dws.append(dw)
+            del back
+        return (None, None, *dws)
+
+
+def _applied(placement, num_experts: int, peers: int):
+    """The placement this layer runs: None for none, identity, or a spec
+    for another peer count than the EP group's (planned and priced by the
+    trainer, not applied); a spec for another expert count raises."""
+    if placement is None or placement.is_identity:
+        return None
+    if placement.num_experts != num_experts:
+        raise ValueError(f"placement for E={placement.num_experts}, the layer has "
+                         f"E={num_experts}")
+    if placement.num_peers != peers:
+        return None
+    placement.validate()
+    return placement
+
+
 def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
                mesh=None, chunks: int = 1, remat: bool = True,
                ragged: bool = False, pipeline: int = 1,
@@ -122,12 +270,16 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     1 = sequential loop, >= 2 = waves of that many chunks.  Stats as the
     JAX package's EP path: aux_loss the world's mean, summed over chunks
     (the caller divides by the chunk count); load and drops summed over the
-    world and the chunks."""
-    if placement is not None:
-        raise NotImplementedError("expert placement is not ported yet")
+    world and the chunks.  ``placement``: this layer's PlacementSpec (module
+    docstring); None or identity is the contiguous layout."""
     peers = _peers(mesh)
     E = moe_cfg.num_experts
-    e_local = E // peers
+    placement = _applied(placement, E, peers)
+    # under a placement the dispatch groups are slots: sorting by slot id
+    # still groups by target peer (slots are peer-contiguous), and e_local
+    # below is slots per peer
+    n_groups = placement.total_slots if placement is not None else E
+    e_local = n_groups // peers
     B, S, d = x.shape
     tokens = B * S
     x2 = x.reshape(tokens, d)
@@ -135,6 +287,11 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     t_c = tokens // chunks
     router = params["router"]
     w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if placement is not None:
+        # once per layer, before the chunks: FCDA's recompute reuses these
+        # (a placement applies only over a group of more than one rank)
+        w1, w3, w2 = _GatherSlots.apply(mesh, slot_routes(placement, mesh.coords[1]),
+                                        w1, w3, w2)
     grads = None
     if ragged or fused:
         # one gradient buffer per expert weight for all the layer's chunks:
@@ -146,13 +303,17 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     def stage_dispatch(xc):
         """Route + single-sort plan + the dispatch exchange."""
         r = route(router, xc, moe_cfg)
+        # expert id -> slot id, replicas split by flat position (identity:
+        # the ids themselves)
+        sel = place_expert_idx(r.expert_idx, placement)
         if moe_cfg.capacity_mode == "dropless":
-            # a token's k experts are distinct, so at most min(k, E_local)
-            # of its slots target one peer: the exact worst case
+            # a token's k experts are distinct and a peer hosts an expert in
+            # at most one slot, so at most min(k, E_local) of its slots
+            # target one peer: the exact worst case
             cap_send = t_c * min(k, e_local)
         else:
             cap_send = dsp.balanced_capacity(t_c, k, peers, moe_cfg.capacity_factor)
-        uplan = dsp.make_unified_plan(r.expert_idx, E, peers, cap_send=cap_send)
+        uplan = dsp.make_unified_plan(sel, n_groups, peers, cap_send=cap_send)
         send = dispatch_rows(xc, uplan.send_slots, peers * cap_send)
         recv = _all_to_all(send.reshape(peers, cap_send, d), mesh)
         recv_cnt = (uplan.counts if peers == 1

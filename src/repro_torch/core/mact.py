@@ -1,4 +1,4 @@
-"""MACT -- Memory-Aware Chunk Tuning (paper section 4.2), global mode.
+"""MACT -- Memory-Aware Chunk Tuning (paper section 4.2).
 
 Before training, MACT models memory from the config (Eq. 1-2), inverts it
 for the largest admissible per-device received-token count s'_max (Eq. 8),
@@ -10,8 +10,15 @@ still fits.  Between steps the trainer feeds back the expert load of the
 previous step; with no observation yet MACT plans for the worst case
 s' -> e*s*k.
 
-The port's copy of the JAX package's controller, choice for choice.  The
-adaptive per-layer mode (``choose_layer_schedules``) is not ported yet.
+``choose_layer_schedules`` is the adaptive per-layer mode: fed the
+telemetry EMA of per-layer expert loads (core/telemetry.py), it resolves
+one ``ScheduleSpec`` per MoE layer through the same Eq. 2/7/9 model, with
+load-margin hysteresis, so a layer's schedule moves only when memory
+safety forces it or the re-plan is stable under ``(1 + hysteresis)`` load
+noise.  With a placement per layer (core/placement.py) each layer's s''
+is read through its placement map.
+
+The port's copy of the JAX package's controller, choice for choice.
 """
 
 from __future__ import annotations
@@ -56,10 +63,16 @@ class MACTController:
                               replica_bytes=replica)
 
     # -- s'' from router statistics -------------------------------------------
-    def observed_s_pp(self, load: np.ndarray, ep_size: Optional[int] = None) -> float:
+    def observed_s_pp(self, load: np.ndarray, ep_size: Optional[int] = None,
+                      placement=None) -> float:
         """Worst per-device received-token count from a global expert-load
-        vector (token-slots per expert, summed over the step)."""
+        vector (token-slots per expert, summed over the step).  With a
+        ``PlacementSpec`` the per-peer sums go through its map (a replicated
+        expert's load split over its slots) instead of the contiguous
+        identity layout."""
         load = np.asarray(load, dtype=np.float64)
+        if placement is not None:
+            return float(placement.peer_loads(load).max())
         e = ep_size or self.par.e
         if load.size % e:
             raise ValueError(
@@ -123,9 +136,57 @@ class MACTController:
                       if b >= depth and b % depth == 0]
         return tuple(space)
 
-    def choose_layer_schedules(self, *args, **kwargs) -> tuple:
-        raise NotImplementedError("adaptive per-layer MACT is not ported yet; "
-                                  "the port runs MACT in global mode")
+    def _admissible(self, sched: ScheduleSpec, s_pp: float) -> bool:
+        """Whether ``sched``'s bin covers the Eq. 9 chunk requirement at its
+        depth for load ``s_pp``."""
+        c = mm.optimal_chunks(s_pp, self.s_prime_max(), pipeline_depth=sched.depth)
+        return sched.chunks >= c
+
+    def choose_layer_schedules(self, loads: Optional[np.ndarray], num_layers: int,
+                               ep_size: Optional[int] = None, *,
+                               max_depth: int = 2,
+                               current: Optional[Sequence[ScheduleSpec]] = None,
+                               hysteresis: float = 0.0, headroom: float = 0.0,
+                               placements: Optional[Sequence] = None) -> tuple:
+        """One ``ScheduleSpec`` per MoE layer from per-layer loads.
+
+        ``loads`` is the telemetry's (num_layers, E) EMA, or None at cold
+        start, which plans every layer for the worst case.  Each layer's
+        estimate is inflated to ``(1 + headroom) * s''``: the EMA trails a
+        drifting load and a plan stays in force for a re-plan interval.
+        With ``current`` (the vector in force) each layer keeps its
+        incumbent unless the incumbent no longer covers the layer's Eq. 9
+        requirement (memory safety: switch at once) or the candidate is
+        also the choice at ``(1 + hysteresis) * s''`` (outside the band).
+        ``placements`` (one PlacementSpec per layer) reads each layer's s''
+        through its placement map."""
+        if loads is None:
+            wc = mm.worst_case_s_prime(self.seq_len, self.par, self.dims.topk)
+            s_pps = [float(wc)] * num_layers
+        else:
+            loads = np.asarray(loads, dtype=np.float64)
+            if loads.ndim != 2 or loads.shape[0] != num_layers:
+                raise ValueError(
+                    f"per-layer load matrix of shape {loads.shape}, expected "
+                    f"({num_layers}, E)")
+            s_pps = [self.observed_s_pp(
+                         loads[j], ep_size,
+                         placements[j] if placements is not None else None)
+                     * (1.0 + headroom)
+                     for j in range(num_layers)]
+        out = []
+        for j, s_pp in enumerate(s_pps):
+            cand = self._schedule_for(s_pp, max_depth)
+            if current is not None and j < len(current):
+                inc = ScheduleSpec(*current[j])
+                if cand != inc and self._admissible(inc, s_pp) and (
+                        hysteresis > 0.0
+                        and self._schedule_for(s_pp * (1.0 + hysteresis),
+                                               max_depth) != cand):
+                    cand = inc           # inside the hysteresis band: hold
+            out.append(cand)
+        self.history.append({"s_pp": s_pps, "layer_schedules": tuple(out)})
+        return tuple(out)
 
     # -- reporting -------------------------------------------------------------
     def memory_report(self, s_pp: float, chunks: int,

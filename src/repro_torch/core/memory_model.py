@@ -205,7 +205,8 @@ def replica_weight_bytes(cfg: ModelConfig, extra_slots_per_peer: int,
                          par: Parallelism,
                          bytes_per_param: float = WEIGHT_ONLY_BYTES) -> float:
     """Per-device weight bytes of hot-expert replica slots (0 without
-    placement, which the port does not run yet)."""
+    placement): weight-only, as the JAX package prices them; the slot
+    copies of a rank's other experts and their gradients are not priced."""
     if cfg.moe is None or extra_slots_per_peer <= 0:
         return 0.0
     n_moe = sum(1 for spec in cfg.layer_specs() if spec.ffn == "moe")

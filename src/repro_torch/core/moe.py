@@ -14,7 +14,9 @@ Strategies, as in the JAX package:
   that train.  Under a mesh (``DistContext.mesh``, ``launch/mesh.py``) each
   rank holds E / P experts and its own whole sequences, the exchange runs
   over its EP group, and the layer's stats are global (core/ep.py); with
-  ``mesh=None`` it runs at one EP peer.
+  ``mesh=None`` it runs at one EP peer.  ``ctx.placement`` (expert
+  placement, core/placement.py) reaches this path only, as in the JAX
+  package.
 * ``dense`` -- every expert on every token, masked combine: the tests'
   numerical oracle.
 
@@ -54,6 +56,17 @@ class DistContext:
     moe_fused: bool = False                # the fused expert leg over the ragged
                                            # layout (kernels/fused_moe.py)
     ragged_block: int = 128                # ragged-layout row-block size
+    layer_schedules: Optional[tuple] = None  # adaptive MACT: one ScheduleSpec
+                                           # (chunks, depth) per MoE layer, in
+                                           # layer order; overrides moe_chunks/
+                                           # pipeline_chunks per layer
+    placement: Optional[object] = None     # PlacementSpec of THIS layer's
+                                           # experts over the EP group
+                                           # (core/placement.py); None =
+                                           # the contiguous identity layout
+    placements: Optional[tuple] = None     # one PlacementSpec per MoE layer,
+                                           # resolved to ``placement`` by
+                                           # blocks.layer_ctx
 
 
 _STRATEGIES = ("tp_gspmd", "ep_shardmap", "dense")
@@ -181,7 +194,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, ctx: DistContext):
         y, stats = moe_ffn_ep(params, x, cfg, mesh=ctx.mesh,
                               chunks=ctx.moe_chunks, remat=ctx.remat_chunks,
                               ragged=ctx.moe_ragged, pipeline=ctx.pipeline_chunks,
-                              ragged_block=ctx.ragged_block, fused=ctx.moe_fused)
+                              ragged_block=ctx.ragged_block, fused=ctx.moe_fused,
+                              placement=ctx.placement)
         stats = dict(stats)
         stats["aux_loss"] = stats["aux_loss"] / ctx.moe_chunks
     elif strategy == "tp_gspmd":

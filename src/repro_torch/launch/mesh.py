@@ -5,7 +5,9 @@ A run of D x P ranks is a ("data", "model") mesh.  The rank at coordinates
 (i, j) is ``i * P + j``, as ``jax.make_mesh`` lays out devices.  The P ranks
 that share a data index form an EP group: they exchange tokens, and each
 holds E / P experts of every MoE layer (rank j the experts
-[j E/P, (j+1) E/P), as ``P(ep_axis, None, None)`` cuts them).  The D ranks
+[j E/P, (j+1) E/P), as ``P(ep_axis, None, None)`` cuts them; under expert
+placement a rank also receives the weights of its slots' other experts
+with ``all_to_all_v``, an exchange of blocks of variable size).  The D ranks
 that share a model index form a data-parallel group: they hold the same
 experts.
 
@@ -127,6 +129,21 @@ class Mesh:
         t = t.contiguous()
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.ep_group)
+        return out
+
+    def all_to_all_v(self, t: torch.Tensor, send_splits: list,
+                     recv_splits: list) -> torch.Tensor:
+        """Exchange blocks of variable size over the EP group: dim 0 of
+        ``t`` is P blocks in peer order, block p (``send_splits[p]`` rows)
+        going to peer p; the result holds, in peer order, the
+        ``recv_splits[p]`` rows peer p sent this rank.  Every peer must
+        pass splits that agree (what p sends here is what this rank
+        expects from p)."""
+        t = t.contiguous()
+        out = t.new_empty((sum(recv_splits),) + tuple(t.shape[1:]))
+        dist.all_to_all_single(out, t, output_split_sizes=list(recv_splits),
+                               input_split_sizes=list(send_splits),
+                               group=self.ep_group)
         return out
 
     def all_reduce_(self, t: torch.Tensor, over: str = "world") -> torch.Tensor:

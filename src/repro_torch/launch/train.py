@@ -13,6 +13,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --layers 2 --ep --fused --steps 4 --seq-len 2048 --global-batch 2 \
       --mesh 1x2 --nproc 2
+  # adaptive per-layer MACT and expert placement with one replica slot per
+  # rank, on 2 spawned CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --smoke --device cpu --ep --fused --mesh 1x2 --nproc 2 \
+      --adaptive-mact --placement --placement-replicas 1 --steps 4
   # resilience: an injected OOM walks the degradation ladder, checkpoints
   # every 2 steps; after a crash, --resume continues to --steps bit for bit
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
@@ -36,8 +41,9 @@ itself.  The backend is NCCL when every rank has a card of its own, gloo
 otherwise (several ranks on one card, or the CPU).  Rank 0 prints the log;
 every rank prints its schedule trace and, on a card, its own peak memory.
 ``--mesh local`` (the default) and ``--mesh 1x1`` are one EP peer.  Under a
-mesh every rank gets the same ``--inject`` faults and the same
-``--checkpoint-dir``, where each rank writes its own files.
+mesh every rank gets the same flags (the same ``--inject`` faults, the same
+planner flags, the same ``--checkpoint-dir``, where each rank writes its own
+files), and every rank plans the same schedules and placements.
 """
 
 from __future__ import annotations
@@ -77,6 +83,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-pipeline", action="store_true",
                     help="force the sequential FCDA chunk loop")
     ap.add_argument("--no-mact", action="store_true")
+    ap.add_argument("--adaptive-mact", action="store_true",
+                    help="per-layer (bin, depth) schedules from the online "
+                         "expert-load telemetry EMA")
+    ap.add_argument("--replan-interval", type=int, default=1,
+                    help="steps between adaptive MACT re-plans")
+    ap.add_argument("--mact-hysteresis", type=float, default=0.1,
+                    help="load-margin hysteresis band: a layer's schedule moves "
+                         "only when the re-plan survives (1+h)x load noise or "
+                         "memory safety forces it")
+    ap.add_argument("--mact-headroom", type=float, default=0.2,
+                    help="plan each layer for (1+this)*EMA load, the margin that "
+                         "keeps a drifting layer's schedule ahead of its load "
+                         "between re-plans")
+    ap.add_argument("--placement", action="store_true",
+                    help="telemetry-driven expert placement: move (and with "
+                         "--placement-replicas, replicate) experts over the EP "
+                         "peers at re-plans")
+    ap.add_argument("--placement-replicas", type=int, default=0,
+                    help="extra hot-expert weight slots per EP peer")
+    ap.add_argument("--placement-hysteresis", type=float, default=0.1,
+                    help="least fractional bottleneck improvement before a "
+                         "layer's placement moves")
     ap.add_argument("--remat", default=None, choices=["none", "full", "memfine"])
     ap.add_argument("--ep", action="store_true",
                     help="the EP strategy (the path that trains): at one peer, "
@@ -195,7 +223,13 @@ def train(args, rank=None, init_method=None):
     trainer = Trainer(cfg, ctx, seq_len=args.seq_len,
                       global_batch=args.global_batch, lr=args.lr, seed=args.seed,
                       dtype=getattr(torch, dtype), use_mact=not args.no_mact,
-                      max_pipeline_depth=depth, checkpoint_dir=args.checkpoint_dir,
+                      max_pipeline_depth=depth, adaptive_mact=args.adaptive_mact,
+                      replan_interval=args.replan_interval,
+                      mact_hysteresis=args.mact_hysteresis,
+                      mact_headroom=args.mact_headroom, use_placement=args.placement,
+                      placement_replicas=args.placement_replicas,
+                      placement_hysteresis=args.placement_hysteresis,
+                      checkpoint_dir=args.checkpoint_dir,
                       checkpoint_every=args.checkpoint_every, resume=args.resume,
                       max_oom_retries=args.max_oom_retries,
                       injector=(FaultInjector.from_string(args.inject)
@@ -206,7 +240,8 @@ def train(args, rank=None, init_method=None):
         print(f"training {cfg.name} ({cfg.num_layers} layers, {dtype}, {device}): "
               f"seq {args.seq_len} x batch {args.global_batch}, {ep}"
               f"{', fused expert leg' if args.fused else ''}, "
-              f"MACT {'off' if args.no_mact else 'on'}", flush=True)
+              f"MACT {'off' if args.no_mact else 'adaptive' if args.adaptive_mact else 'on'}"
+              f"{', expert placement' if args.placement else ''}", flush=True)
     state = trainer.fit(args.steps, verbose=lead)
     who = "" if mesh is None else f"rank {mesh.rank}: "
     if trainer.resumed_from is not None:
@@ -221,6 +256,16 @@ def train(args, rank=None, init_method=None):
     else:
         print(f"{who}nothing to do: checkpoint already at step {state.step} "
               f">= target {args.steps}", flush=True)
+    if args.placement and trainer.placement_trace:
+        last = trainer.placement_trace[-1]
+        imb = last["imbalance"]
+        print(f"{who}placement: {len(trainer.placement_trace)} replan(s), last moved "
+              f"{last['migrated_slots']} slots ({last['migrated_bytes'] / 2**20:.1f} "
+              f"MiB a step through the weight exchange), imbalance "
+              f"{'n/a' if imb is None else f'{max(imb):.2f}'}", flush=True)
+    if args.adaptive_mact and trainer.schedule_trace:
+        print(f"{who}adaptive layer schedules (last plan): "
+              f"{[tuple(s) for s in trainer.schedule_trace[-1]]}", flush=True)
     if trainer.max_memory_allocated is not None:
         print(f"{who}peak device memory (max_memory_allocated) "
               f"{trainer.max_memory_allocated / 1e9:.2f} GB on "

@@ -16,12 +16,14 @@ keeps the weights' type.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.chunking import ScheduleSpec
 from repro_torch.core.moe import DistContext, moe_ffn
 from repro_torch.models.attention import (attention, decode_attention,
                                           extend_attention)
@@ -32,6 +34,25 @@ def zero_stats(cfg: ModelConfig, device) -> dict:
     E = cfg.moe.num_experts if cfg.moe else 1
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"aux_loss": z, "load": torch.zeros(E, device=device), "drops": z}
+
+
+def layer_ctx(ctx: DistContext, moe_index: Optional[int]) -> DistContext:
+    """The context the MoE layer at MoE position ``moe_index`` runs under.
+    With a schedule vector (``ctx.layer_schedules``, adaptive MACT) the
+    layer gets its own (chunk bin, pipeline depth), and with a placement
+    vector (``ctx.placements``) its own expert placement; otherwise the
+    global knobs apply.  The returned context drops the vectors, so the
+    layer sees only the knobs it always did."""
+    if moe_index is None or (ctx.layer_schedules is None and ctx.placements is None):
+        return ctx
+    changes: dict = {}
+    if ctx.layer_schedules is not None:
+        spec = ScheduleSpec(*ctx.layer_schedules[moe_index])
+        changes.update(moe_chunks=spec.chunks, pipeline_chunks=spec.depth,
+                       layer_schedules=None)
+    if ctx.placements is not None:
+        changes.update(placement=ctx.placements[moe_index], placements=None)
+    return dataclasses.replace(ctx, **changes)
 
 
 def _require_attn(spec: LayerSpec) -> None:

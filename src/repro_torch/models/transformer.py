@@ -127,6 +127,8 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def num_moe_layers(cfg: ModelConfig) -> int:
+    """The length of the per-layer schedule and placement vectors and of
+    the ``load_per_layer`` matrix's leading axis."""
     return sum(1 for s in cfg.layer_specs() if s.ffn == "moe")
 
 
@@ -139,8 +141,17 @@ def forward(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict, *,
     ``cache_len`` sizes the caches (default: the prompt length).
 
     ``stats`` sums the MoE stats over layers and carries ``load_per_layer``,
-    the (L_moe, E) routed-load matrix in layer order."""
+    the (L_moe, E) routed-load matrix in layer order: the telemetry of
+    adaptive MACT and expert placement.  ``ctx.layer_schedules`` (one
+    ScheduleSpec per MoE layer) and ``ctx.placements`` (one PlacementSpec
+    per MoE layer) give each MoE layer its own schedule and placement
+    (``blocks.layer_ctx``)."""
     _check_supported(cfg)
+    for name in ("layer_schedules", "placements"):
+        vec = getattr(ctx, name)
+        if vec is not None and len(vec) != num_moe_layers(cfg):
+            raise ValueError(f"{name} has {len(vec)} entries, config {cfg.name!r} "
+                             f"has {num_moe_layers(cfg)} MoE layers")
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -151,7 +162,10 @@ def forward(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict, *,
     stats = blocks.zero_stats(cfg, x.device)
     loads, caches = [], []
     for layer_params, spec in zip(params["layers"], cfg.layer_specs()):
-        out = blocks.apply_layer(layer_params, x, spec, cfg, ctx, positions, **kw)
+        # an MoE layer's own schedule and placement; its position among the
+        # MoE layers is the number of loads gathered so far
+        lctx = blocks.layer_ctx(ctx, len(loads) if spec.ffn == "moe" else None)
+        out = blocks.apply_layer(layer_params, x, spec, cfg, lctx, positions, **kw)
         x, st = out[0], out[1]
         if return_cache:
             caches.append(out[2])

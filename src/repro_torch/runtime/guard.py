@@ -67,11 +67,14 @@ def is_oom_error(exc: BaseException) -> bool:
 
 
 def _conservatism(key: tuple) -> tuple:
-    """(chunks, depth) summary of a schedule key, for ladder ordering.  (The
-    JAX package also orders adaptive MACT's per-layer vectors, which the
-    port does not plan yet.)"""
+    """(chunks, depth) summary of a schedule key, for ladder ordering: for
+    adaptive MACT's per-layer vector, the least chunked and deepest of its
+    layers' schedules (that is what runs out of memory first)."""
     if key and key[0] == FULL_REMAT:
         return (key[1], 1)
+    if key and isinstance(key[0], tuple):                  # per-layer vector
+        specs = [ScheduleSpec(*s) for s in key]
+        return (min(s.chunks for s in specs), max(s.depth for s in specs))
     return (int(key[0]), int(key[1]))
 
 

@@ -727,21 +727,28 @@ def _ep_rank(rank: int, shape: tuple, store: str, out: str, what: str) -> None:
     try:
         dev = mesh_lib.init_world(rank, shape[0] * shape[1], store, "cuda")
         mesh = mesh_lib.make_host_mesh(shape)
-        rec = (_ep_layer_errors if what == "layer" else _ep_losses)(mesh, dev)
+        if what == "losses":
+            rec = _ep_losses(mesh, dev)
+        else:
+            rec = _ep_layer_errors(mesh, dev, placed=what == "placed")
         Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _ep_layer_errors(mesh, dev) -> dict:
+def _ep_layer_errors(mesh, dev, placed: bool = False) -> dict:
     """The EP layer on this rank's E / P experts through the kernels (CUDA
     tensors) and through their plain versions (the same inputs on the
     CPU), over the same mesh: the largest differences of y and of every
-    gradient, per leg, and each leg's kernel launches."""
+    gradient, per leg, and each leg's kernel launches.  ``placed``: under
+    a placement with one replica slot per rank (E_local = E / P + 1)."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.core import moe
+    from repro_torch.core.placement import plan_placement
     E, d, f, T = 8, 256, 512, 128
+    spec = (plan_placement([100, 50, 1, 1, 1, 1, 1, 1], mesh.peers, replicas=1)
+            if placed else None)
     cfg = MoEConfig(num_experts=E, top_k=2, d_ff_expert=f)
     g = torch.Generator().manual_seed(0)
     full = {"router": torch.randn((d, E), generator=g) * d ** -0.5,
@@ -763,7 +770,8 @@ def _ep_layer_errors(mesh, dev) -> dict:
             xd = x.to(device).requires_grad_()
             ctx = moe.DistContext(device=device, mesh=mesh, moe_strategy="ep_shardmap",
                                   moe_chunks=2, moe_fused=leg == "fused",
-                                  moe_ragged=leg == "ragged", ragged_block=64)
+                                  moe_ragged=leg == "ragged", ragged_block=64,
+                                  placement=spec)
             y, st = moe.moe_ffn(params, xd, cfg, ctx)
             leaves = [xd, params["router"]["w"], params["w1"], params["w3"], params["w2"]]
             grads = torch.autograd.grad((y ** 2).sum() + st["aux_loss"], leaves)
@@ -771,7 +779,8 @@ def _ep_layer_errors(mesh, dev) -> dict:
             launches = {fn.__name__: fn.launches for fn in _cuda.wrappers() if fn.launches}
         rec[leg] = {"errors": [(a - b).abs().max().item() / (1 + b.abs().max().item())
                                for a, b in zip(outs[1], outs[0])],
-                    "launches": launches}
+                    "launches": launches,
+                    "slots": spec.slots_per_peer if spec else E // mesh.peers}
     return rec
 
 
@@ -838,6 +847,24 @@ def test_ep_layer_kernels_match_their_plain_versions_across_ranks(cuda, shape, t
                        "gather_combine", "segment_outer"}}
     for r, rec in enumerate(_run_ep_ranks(shape, tmp_path, "layer")):
         for leg, got in rec.items():
+            assert max(got["errors"]) <= 1e-4, (r, leg, got["errors"])
+            assert set(got["launches"]) == want[leg], (r, leg, got["launches"])
+
+
+@pytest.mark.cuda
+def test_placed_ep_layer_kernels_match_their_plain_versions_at_five_slots(cuda,
+                                                                         tmp_path):
+    """The EP layer under a placement with one replica slot per rank, on 2
+    gloo ranks sharing the card: the kernels at E_local 5 (the slot
+    weights gathered over the exchange) against their plain versions,
+    fp32, every kernel of each leg launched on every rank."""
+    want = {"fused": {"fused_moe", "ragged_matmul", "scatter_rows", "gather_combine",
+                      "segment_outer"},
+            "ragged": {"ragged_swiglu", "ragged_matmul", "scatter_rows",
+                       "gather_combine", "segment_outer"}}
+    for r, rec in enumerate(_run_ep_ranks((1, 2), tmp_path, "placed")):
+        for leg, got in rec.items():
+            assert got["slots"] == 5
             assert max(got["errors"]) <= 1e-4, (r, leg, got["errors"])
             assert set(got["launches"]) == want[leg], (r, leg, got["launches"])
 

@@ -103,10 +103,12 @@ def test_moe_ffn_matches_jax(B, S, chunks, mode):
 def test_unported_strategies_raise():
     """EP, dense and local resolve; an unknown strategy is refused; under a
     multi-rank mesh "auto" is EP, a non-EP strategy raises and so does an EP
-    layer whose tokens do not split (the JAX package's message); the EP
-    option still to be ported (expert placement) raises, while the ragged
-    leg runs and computes what the fused leg does."""
+    layer whose tokens do not split (the JAX package's message); an expert
+    placement for another expert count raises (the JAX package's check) and
+    one for another EP group size is not applied; the ragged leg runs and
+    computes what the fused leg does."""
     from repro_torch.core.ep import moe_ffn_ep
+    from repro_torch.core.placement import plan_placement
     from repro_torch.launch.mesh import Mesh
     cfg = get_config("mixtral-8x7b").reduced().moe
     for strategy in ("ep_shardmap", "dense", "tp_gspmd"):
@@ -128,8 +130,9 @@ def test_unported_strategies_raise():
     params = {"router": {"w": torch.zeros((256, 4)), "bias": torch.zeros(4)},
               **{k: torch.zeros((4, 256, 512) if k != "w2" else (4, 512, 256))
                  for k in ("w1", "w3", "w2")}}
-    with pytest.raises(NotImplementedError):
-        moe_ffn_ep(params, x, cfg, fused=True, placement=object())
+    with pytest.raises(ValueError, match="placement for E=8"):
+        moe_ffn_ep(params, x, cfg, fused=True,
+                   placement=plan_placement([100, 50, 1, 1, 1, 1, 1, 1], 2))
     gen = torch.Generator().manual_seed(0)
     for leaf in (params["router"]["w"], params["w1"], params["w3"], params["w2"]):
         leaf.copy_(torch.randn(leaf.shape, generator=gen) * leaf.shape[-2] ** -0.5)
@@ -142,6 +145,10 @@ def test_unported_strategies_raise():
     torch.testing.assert_close(y_r, y_f, rtol=1e-5, atol=1e-5)
     assert st_r["load"].tolist() == st_f["load"].tolist()
     assert float(st_r["drops"]) == float(st_f["drops"]) == 0.0
+    spec = plan_placement([100, 50, 1, 1], 2, replicas=1)     # 2 peers, run at 1
+    y_p, _ = tmoe.moe_ffn(params, x, cfg, tmoe.DistContext(
+        device=CPU, moe_strategy="ep_shardmap", moe_fused=True, placement=spec))
+    assert not spec.is_identity and torch.equal(y_p, y_f)
 
 
 def test_bridge_unstacks_scanned_periods():

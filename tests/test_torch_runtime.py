@@ -20,6 +20,7 @@ crash-consistent checkpoints and resume, and the train step's transaction.
 The reduced Mixtral in fp32, seq 32, batch 2, on the CPU.
 """
 
+import dataclasses
 import gc
 import sys
 import weakref
@@ -441,9 +442,69 @@ def test_launcher_walks_the_ladder_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_trainer_still_refuses_what_is_not_ported():
-    for name in ("adaptive_mact", "use_placement"):
-        with pytest.raises(NotImplementedError, match=name):
-            Trainer(CFG, _ctx(), **KW, **{name: True})
+    """Adaptive MACT and expert placement are ported and construct; a
+    config whose inputs the port has not ported still raises."""
+    tr = Trainer(CFG, _ctx(), **KW, adaptive_mact=True, use_placement=True,
+                 placement_replicas=1)
+    assert tr.mact.replica_slots == 1 and tr.telemetry.num_layers == 2
+    learned = dataclasses.replace(CFG, learned_pos=64)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Trainer(learned, _ctx(), **KW, adaptive_mact=True).fit(1)
+
+
+def test_injected_oom_under_adaptive_mact_walks_as_the_reference_trainer(monkeypatch):
+    """An injected OOM under adaptive MACT (per-layer vectors, re-planned
+    every 3 steps): the same rungs, schedule vectors, plans and audits as
+    the JAX trainer's, and the audit forces a fresh per-layer plan at the
+    next step."""
+    jax = pytest.importorskip("jax")
+    import repro.launch
+    from repro.configs import registry
+    from repro.core import moe as jmoe
+    from repro.runtime import faults as jfaults
+    from repro.training import trainer as jtrainer
+    from repro_torch.bridge import params_from_jax
+    monkeypatch.delattr(repro.launch, "hlo_analysis", raising=False)
+    monkeypatch.setitem(sys.modules, "repro.launch.hlo_analysis", None)
+    jc = registry()["mixtral-8x7b"].reduced()
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    kw = dict(KW, adaptive_mact=True, replan_interval=3)
+    jt = jtrainer.Trainer(jc, jmoe.DistContext(mesh=mesh, moe_strategy="ep_shardmap",
+                                               moe_fused=True),
+                          injector=jfaults.FaultInjector.from_string("oom@1"),
+                          hw=jguard_hw(), **kw)
+    tt = Trainer(CFG, _ctx(), injector=FaultInjector.from_string("oom@1"), **kw)
+    jstate = jtrainer.init_train_state(jax.random.PRNGKey(0), jc)
+    tstate = make_train_state(params_from_jax(jax.tree.map(np.asarray, jstate.params),
+                                              CFG, CPU))
+    jt.fit(4, jstate)
+    tt.fit(4, tstate)
+    vecs = lambda tr: [[tuple(s) for s in v] for v in tr.schedule_trace]  # noqa: E731
+    assert vecs(tt) == vecs(jt)
+    assert tt.chunk_trace == jt.chunk_trace and tt.pipeline_trace == jt.pipeline_trace
+    assert [r["oom_retries"] for r in tt.log] == [r["oom_retries"] for r in jt.log] \
+        == [0, 1, 0, 0]
+    keys = lambda esc: [(e["step"], e["failed"], e["next"], e["retries"])  # noqa: E731
+                        for e in esc]
+    assert keys(tt.guard.escalations) == keys(jt.guard.escalations)
+    audit = lambda a: [(x["step"], x["key"], x["modeled_total_gb"], x["modeled_fits"])  # noqa: E731
+                       for x in a]
+    assert audit(tt.guard.audits) == audit(jt.guard.audits)
+    assert tt.headroom_widenings == jt.headroom_widenings and tt.headroom_widenings
+    plans = lambda tr: [h for h in tr.mact.history if "layer_schedules" in h]  # noqa: E731
+    assert [h["s_pp"] for h in plans(tt)] == [h["s_pp"] for h in plans(jt)]
+    # the second plan ran at step 2, just after the OOM, not at step 3 as
+    # the interval alone would have it (a run without the fault)
+    calm = Trainer(CFG, _ctx(), **kw)
+    calm.fit(4, make_train_state(params_from_jax(
+        jax.tree.map(np.asarray, jtrainer.init_train_state(jax.random.PRNGKey(0),
+                                                           jc).params), CFG, CPU)))
+    assert (tt._plan_age, jt._plan_age, calm._plan_age) == (2, 2, 1)
+    assert len(plans(tt)) == len(plans(calm)) == 2
+    np.testing.assert_array_equal(tt.telemetry.loads, jt.telemetry.loads)
+    np.testing.assert_allclose([r["loss"] for r in tt.log], [r["loss"] for r in jt.log],
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_audit_reads_the_model_and_widens_the_headroom():
