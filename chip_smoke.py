@@ -43,7 +43,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               busy time, by kernel), each run's ms a pass, tok/s, p50/p99,
               device idle share, peak memory against the modeled peak, and
               one decode wave both ways: logits bit for bit, device time.
-6. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
+6. serve (paged) -- the serve phase's weights served from 16-token pages
+              (serving/paged_scheduler.py): (a) the serve trace against a
+              slot-map run, every sampled logits row bit-equal and every
+              warm wave a replay of one paged decode graph; (b) 8 requests
+              sharing a 32-token system prompt at cache_len 4096 (the
+              whole window) with the prefix trie (at least 4 hits) and
+              without (same streams); (c) the same under a budget of about
+              two requests' worst case with preemption (at least one, same
+              streams), then with an OOM injected at the first spill (the
+              allocator audits clean).  Each prints tok/s, p50/p99, page
+              high-watermark against the slot map's modeled cache bytes,
+              max_memory_allocated, spill and restore ms, and the warm
+              4-slot wave's device ms paged against the slot map's.
+7. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
               cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
               of 2 x 2048 tokens on the EP strategy at one peer with the
               fused expert leg, MACT choosing the schedule; every loss and
@@ -52,12 +65,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               the peak of one forward + backward against MACT's modeled
               activation bytes at MACT's schedule, at (2, 1) and unchunked:
               two sequential chunks must not raise it above one chunk's.
-7. train (ragged leg) -- the same model and steps through Trainer, built as
+8. train (ragged leg) -- the same model and steps through Trainer, built as
               launch/train.py builds it, on the three-launch ragged leg
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
               fused_moe must not launch.  The same profile and peaks (Eq. 2
               with the dispatch buffer's term).
-8. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
+9. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
               card over gloo (started as torchrun starts them): the same
               model, batch and steps, each rank holding 4 of the 8 experts
               of each layer and one of the two sequences, on the fused leg,
@@ -67,7 +80,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches; the phase fails on a non-finite loss, ranks that
               disagree, a kernel of a leg that did not launch on a rank,
               (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
-9. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
+10. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
               batch and fused leg, 5 steps, layer 0's router zeroed after
               init (step 1 sends every token to experts 0 and 1, which
               identity places on rank 0): launch/train.py with global
@@ -89,7 +102,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               above (1, 1) on a placed run, or a placed run's first step
               (identity at cold start) that differs from the global run's
               in one bit.
-10. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
+11. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
               leg: (a) launch/train.py --inject "oom@2,burst@2x64"
               --no-pipeline for 4 steps of 2 x 2048 tokens must escalate
               once, at step 2, to a deeper chunk count, and the burst must
@@ -107,7 +120,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               same kill-and-resume on 2 card ranks (gloo, reduced config),
               an injected OOM walked in lockstep, and one rank's torn
               payload invalidating the step for both.
-11. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
+12. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
               steps on each leg must give the same schedules and losses, at
@@ -2339,6 +2352,316 @@ def profile_phase(served: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the paged phase: (a) the serve trace at 16-token pages; (b) and (c) a
+# shared 32-token system prompt and a 16-32-token tail per request, 8-24
+# tokens generated, at Mixtral's whole 4096-token window (a slot-map slot
+# would reserve a 4096-token ring)
+PAGE = 16
+PREFIX_SLOTS, PREFIX_CACHE_LEN, PREFIX_STEM = 4, 4096, 32
+PREFIX_TAIL, PREFIX_GEN = (16, 32), (8, 24)
+PREFIX_HITS = 4              # of the 8 requests
+BUDGET_REQUESTS = 2.2        # (c): room for about two requests' worst case
+
+
+def _recording(sched, store: dict) -> None:
+    """Keep a copy of every logits row ``sched`` samples a token from, by
+    (request, token index)."""
+    append = sched._append_token
+
+    def rec(req, logits_v, now):
+        store[(req.rid, len(req.out))] = logits_v.copy()
+        return append(req, logits_v, now)
+
+    sched._append_token = rec
+
+
+def _timed(fn, seconds: list):
+    """``fn`` timed by the host clock between two synchronizes."""
+    import torch
+
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def _prefix_trace(cfg, priorities=False):
+    """(b)'s 8 requests; with ``priorities`` the last 6 may preempt the
+    first 2."""
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(11)
+    stem = rng.integers(0, cfg.vocab_size, PREFIX_STEM)
+    out = []
+    for i in range(8):
+        tail = rng.integers(0, cfg.vocab_size, int(rng.integers(PREFIX_TAIL[0],
+                                                                PREFIX_TAIL[1] + 1)))
+        out.append(Request(rid=i, tokens=np.concatenate([stem, tail]).astype(np.int32),
+                           max_new_tokens=int(rng.integers(PREFIX_GEN[0],
+                                                           PREFIX_GEN[1] + 1)),
+                           priority=int(priorities and i >= 2)))
+    return out
+
+
+def _paged_run(argv, params, trace=None, record=None, spill=None, restore=None,
+               preempt_steps=None) -> dict:
+    """One run of the launcher's scheduler (``serve.setup``) on ``params``:
+    ``trace`` replaces the launcher's own; the scheduler is dropped at the
+    end.  Returns the metrics, streams, order and what the wave and spill
+    timings need."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as serve_engine
+
+    sched, own = serve.setup(serve.parse_args(argv), params=params)
+    if record is not None:
+        _recording(sched, record)
+    if spill is not None:
+        sched.pool.spill = _timed(sched.pool.spill, spill)
+        sched.pool.restore = _timed(sched.pool.restore, restore)
+    if preempt_steps is not None:
+        preempt = sched._preempt
+
+        def rec(victim):
+            preempt_steps.append(sched.steps)
+            return preempt(victim)
+        sched._preempt = rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = sched.run(own if trace is None else trace)
+    torch.cuda.synchronize()
+    run = {"metrics": m, "peak": torch.cuda.max_memory_allocated(),
+           "streams": [r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
+           "order": list(sched.admission_order), "scfg": sched.scfg,
+           "passes": m["decode_waves"] + m["prefill_chunks"]}
+    unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
+    if sched.queue or sched.active or unfinished or m["nonfinite_logits"]:
+        raise SystemExit(f"{' '.join(argv[-6:])}: not every request finished with "
+                         f"finite logits (short {unfinished})")
+    # what the cache holds on the card: the page pools, or the slot map's cache
+    run["cache_bytes"] = sum(t.nbytes for t in serve_engine.leaves(
+        sched.pool.pools if hasattr(sched, "pool") else sched.cache))
+    if hasattr(sched, "pool"):
+        sched.pool.alloc.audit()
+        if sched.trie is not None:
+            sched.trie.clear()
+        leaked = [k for k in sched.pool.alloc.spaces if sched.pool.alloc.allocated(k)]
+        if leaked:
+            raise SystemExit(f"the paged run leaked pages of {leaked}")
+        step = sched.pool._decode
+        run.update(captures=step.captures, capture_s=step.capture_s,
+                   graphs=step.graphs(),
+                   worst_case=max(sched.pool.ops.worst_case_bytes(
+                       len(r.prompt) + r.max_new_tokens) for r in sched.finished))
+    del sched
+    gc.collect()
+    return run
+
+
+def _slot_cache_bytes(cfg, slots: int, cache_len: int) -> int:
+    """Device bytes of the slot map's fp32 cache: K and V of ``slots`` rows
+    of each layer's cache length."""
+    from repro_torch.models import blocks
+    row = cfg.num_kv_heads * cfg.resolved_head_dim * 4
+    return sum(2 * slots * blocks.cache_len(spec, cache_len) * row
+               for spec in cfg.layer_specs())
+
+
+def _wave_ms(params, cfg, ctx, cache_len: int, filled: int) -> tuple:
+    """Device ms of one warm 4-slot decode wave, paged (its graph on a pool
+    holding 4 requests of ``filled`` tokens) and on the slot map (its graph
+    on its static cache)."""
+    import torch
+    from repro_torch.serving import engine
+    from repro_torch.serving.paged_cache import PagedCachePool
+
+    pool = PagedCachePool(params, cfg, ctx, 4, cache_len, PAGE)
+    rps = []
+    for _ in range(4):
+        rp = pool.ops.new_request()
+        for b in range(-(-filled // PAGE)):
+            pool.ops.ensure_block(rp, pool.groups[0], b)
+        pool.ops.alloc_state(rp)
+        pool.prepare_decode_write(rp, filled)       # the page the wave writes
+        rps.append(rp)
+    tok = pool._ids([[1]] * 4)
+    args = (pool._tables(rps), pool._write_pages(rps, [filled] * 4),
+            pool._ids([filled] * 4), tok)
+    paged, _, note_p = device_ms(lambda: pool._decode(params, pool.pools, *args))
+    step = engine.get_decode_step(cfg, ctx)
+    holder = _Holder()
+    own = step.static_cache(engine.init_serve_cache(params, cfg, 4, cache_len), holder)
+    slot, _, note_s = device_ms(lambda: step(params, own, tok))
+    del own, holder, pool
+    torch.cuda.empty_cache()
+    return paged, slot, note_p + note_s
+
+
+def paged_phase(served: dict, card: str) -> dict:
+    """The paged serving path on the serve phase's weights: (a) the serve
+    trace at 16-token pages against a slot-map run, (b) prefix reuse on a
+    shared system prompt at Mixtral's whole window, (c) preemption under a
+    tight budget, and an injected fault at the preemption's spill.  Returns
+    the grouped kernels' launches over the paged runs."""
+    phase("serve (paged)")
+    import numpy as np
+    import torch
+    from repro_torch.core import memory_model as mm
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.serving import engine
+
+    params, cfg, ctx = served["params"], served["cfg"], served["ctx"]
+    n_moe = sum(1 for spec in cfg.layer_specs() if spec.ffn == "moe")
+    cache_bytes = lambda n: mm.decode_cache_bytes(cfg, n, dtype_bytes=2)  # noqa: E731
+    runs = {}
+
+    # (a) the slot map and the paged cache on the serve trace, every sampled
+    # logits row kept, then a warm run of each on the graphs the first ones
+    # captured: the counts start at 0 after the slot-map runs
+    paged_args = SERVE_ARGS + ["--page-size", str(PAGE)]
+    logits = {"slot map": {}, "paged": {}}
+    runs["slot map"] = _paged_run(SERVE_ARGS, params, record=logits["slot map"])
+    runs["slot map, warm"] = _paged_run(SERVE_ARGS, params)
+    counters = (gm.grouped_swiglu, gm.grouped_matmul)
+    for fn in counters:
+        fn.launches = 0
+    runs["paged"] = _paged_run(paged_args, params, record=logits["paged"])
+    runs["paged, warm"] = _paged_run(paged_args, params)
+    a = runs["paged"]
+    want = (served["streams"], served["order"])
+    for name, r in runs.items():
+        if (r["streams"], r["order"]) != want:
+            raise SystemExit(f"the {name} run's streams or admission order differ "
+                             f"from the serve phase's")
+    rows = logits["slot map"]
+    diff = [k for k in rows if not np.array_equal(rows[k], logits["paged"].get(k))]
+    if diff or rows.keys() != logits["paged"].keys():
+        raise SystemExit(f"paged logits differ from the slot map's at {diff[:4]} "
+                         f"of {len(rows)} sampled rows")
+    if a["captures"] != 1 or a["graphs"] != 1:
+        raise SystemExit(f"the paged decode wave captured {a['captures']} graphs "
+                         f"over {a['metrics']['decode_waves']} waves: every warm "
+                         f"wave must replay one graph")
+    m = a["metrics"]
+    scfg = a["scfg"]
+    print(f"{card}: (a) serve trace, pages of {PAGE}, cache_len {scfg.cache_len}: "
+          f"streams and admission order equal the serve phase's; all {len(rows)} "
+          f"sampled logits rows bit-equal to the slot map's; {m['decode_waves']} "
+          f"waves on 1 paged decode graph (captured in {a['capture_s']:.3f} s)",
+          flush=True)
+    for name, r in runs.items():
+        mr = r["metrics"]
+        print(f"{card}: (a) {name} run: {mr['tok_per_s']:.1f} tok/s, p50 "
+              f"{mr['latency_p50_s']:.3f} s, p99 {mr['latency_p99_s']:.3f} s, "
+              f"{1e3 * mr['elapsed_s'] / r['passes']:.2f} ms a pass, "
+              f"max_memory_allocated {r['peak'] / 1e9:.3f} GB", flush=True)
+    print(f"{card}: (a) modeled (bf16): page_hwm_bytes {m['page_hwm_bytes'] / 1e6:.3f} "
+          f"MB against the slot map's {m['max_occupancy']} x decode_cache_bytes = "
+          f"{m['max_occupancy'] * cache_bytes(scfg.cache_len) / 1e6:.3f} MB; on the "
+          f"card (fp32): the page pools {a['cache_bytes'] / 1e6:.3f} MB against the "
+          f"slot map's cache {runs['slot map']['cache_bytes'] / 1e6:.3f} MB", flush=True)
+
+    # (b) prefix reuse at the whole window, with the trie and without
+    base = SERVE_ARGS + ["--page-size", str(PAGE), "--max-slots", str(PREFIX_SLOTS),
+                         "--cache-len", str(PREFIX_CACHE_LEN)]
+    for name in ("prefix", "no prefix", "prefix, warm", "no prefix, warm"):
+        flags = ["--prefix-cache"] if name.startswith("prefix") else []
+        runs[name] = _paged_run(base + flags, params, trace=_prefix_trace(cfg))
+    pm = runs["prefix"]["metrics"]
+    if any(runs[k]["streams"] != runs["prefix"]["streams"]
+           for k in ("no prefix", "prefix, warm", "no prefix, warm")):
+        raise SystemExit("prefix reuse changed the token streams")
+    if pm["prefix_hits"] < PREFIX_HITS or not pm["prefix_tokens_reused"]:
+        raise SystemExit(f"prefix reuse hit {pm['prefix_hits']} of 8 requests "
+                         f"(at least {PREFIX_HITS}), reusing "
+                         f"{pm['prefix_tokens_reused']} tokens")
+    for name in ("prefix", "no prefix", "prefix, warm", "no prefix, warm"):
+        r = runs[name]
+        mr = r["metrics"]
+        print(f"{card}: (b) {name}: {mr['tok_per_s']:.1f} tok/s, p50 "
+              f"{mr['latency_p50_s']:.3f} s, p99 {mr['latency_p99_s']:.3f} s, "
+              f"{mr['prefill_chunks']} prefill chunks, {mr['decode_waves']} waves, "
+              f"modeled (bf16) page_hwm_bytes {mr['page_hwm_bytes'] / 1e6:.3f} MB "
+              f"against the slot map's {mr['max_occupancy']} x decode_cache_bytes = "
+              f"{mr['max_occupancy'] * cache_bytes(PREFIX_CACHE_LEN) / 1e6:.3f} MB; on "
+              f"the card (fp32) the page pools {r['cache_bytes'] / 1e6:.3f} MB against "
+              f"the slot map's {PREFIX_SLOTS}-slot cache "
+              f"{_slot_cache_bytes(cfg, PREFIX_SLOTS, PREFIX_CACHE_LEN) / 1e6:.3f} MB; "
+              f"max_memory_allocated {r['peak'] / 1e9:.3f} GB", flush=True)
+    print(f"{card}: (b) prefix hits {pm['prefix_hits']} of 8, "
+          f"{pm['prefix_tokens_reused']} tokens reused; streams equal without the "
+          f"trie; decode graph captured in {runs['prefix']['capture_s']:.3f} s",
+          flush=True)
+
+    # (c) preemption under a budget of about two requests' worst case
+    per_req = runs["prefix"]["worst_case"]          # (c) has (b)'s lengths
+    floor = mm.serving_paged_peak_bytes(cfg, page_bytes=0, decode_tokens=PREFIX_SLOTS,
+                                        prefill_tokens=scfg.prefill_chunk)
+    budget = floor + BUDGET_REQUESTS * per_req
+    slot_fit = 0
+    while mm.serving_peak_bytes(cfg, requests=slot_fit + 1, cache_len=PREFIX_CACHE_LEN,
+                                decode_tokens=PREFIX_SLOTS,
+                                prefill_tokens=scfg.prefill_chunk) <= budget:
+        slot_fit += 1
+    tight = base + ["--prefix-cache", "--preemption", "--budget-gb", repr(budget / 1e9)]
+    spill, restore, steps = [], [], []
+    runs["budget"] = _paged_run(tight, params, trace=_prefix_trace(cfg, priorities=True),
+                                spill=spill,
+                                restore=restore, preempt_steps=steps)
+    cm = runs["budget"]["metrics"]
+    if cm["preemptions"] < 1 or runs["budget"]["streams"] != runs["prefix"]["streams"]:
+        raise SystemExit(f"under the budget: {cm['preemptions']} preemptions, streams "
+                         f"{'equal' if runs['budget']['streams'] == runs['prefix']['streams'] else 'differ'}")
+    print(f"{card}: (c) budget {budget / 1e9:.4f} GB (weights + activations "
+          f"{floor / 1e9:.4f} GB + {BUDGET_REQUESTS} x {per_req / 1e6:.3f} MB worst "
+          f"case): {cm['preemptions']} preemptions, every request finished, streams "
+          f"equal the unconstrained run's; max_occupancy {cm['max_occupancy']} under "
+          f"the paged admission model against {slot_fit} requests under the slot "
+          f"map's (both modeled bf16 bytes; on the card the fp32 pools hold "
+          f"{runs['budget']['cache_bytes'] / 1e6:.3f} MB whatever the budget, the "
+          f"slot map's cache {_slot_cache_bytes(cfg, PREFIX_SLOTS, PREFIX_CACHE_LEN) / 1e6:.3f}"
+          f" MB); spill "
+          f"{1e3 * sum(spill) / len(spill):.3f} ms and restore "
+          f"{1e3 * sum(restore) / max(len(restore), 1):.3f} ms a preemption "
+          f"({len(spill)} / {len(restore)}); {cm['tok_per_s']:.1f} tok/s, p50 "
+          f"{cm['latency_p50_s']:.3f} s, p99 {cm['latency_p99_s']:.3f} s, "
+          f"max_memory_allocated {runs['budget']['peak'] / 1e9:.3f} GB", flush=True)
+    spec = f"oom@{steps[0]}"
+    runs["fault"] = _paged_run(tight + ["--inject", spec], params,
+                               trace=_prefix_trace(cfg, priorities=True))
+    fm = runs["fault"]["metrics"]
+    if (fm["faults"] < 1 or fm["preemptions"] < 1
+            or runs["fault"]["streams"] != runs["prefix"]["streams"]):
+        raise SystemExit(f"--inject {spec}: {fm['faults']} faults, "
+                         f"{fm['preemptions']} preemptions; streams must equal")
+    print(f"{card}: (c) --inject {spec} at the first preemption's spill: "
+          f"{fm['faults']} fault, {fm['preemptions']} preemptions after it, every "
+          f"request finished with the same streams, allocator audit clean", flush=True)
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    passes = sum(r["passes"] for name, r in runs.items()
+                 if not name.startswith("slot map"))
+    for name, n in launches.items():
+        if n != n_moe * passes:
+            raise SystemExit(f"{name} launched {n} times over the paged runs; they "
+                             f"run it {n_moe * passes} times (once per MoE layer per pass)")
+    del runs
+    for cache_len, filled in ((scfg.cache_len, 64), (PREFIX_CACHE_LEN, 64)):
+        paged, slot, note = _wave_ms(params, cfg, ctx, cache_len, filled)
+        print(f"{card}: warm 4-slot decode wave at cache_len {cache_len} ({filled} "
+              f"tokens each): paged {paged:.4f} ms, slot map {slot:.4f} ms (device "
+              f"time of the graph replays){note}", flush=True)
+    engine.clear_step_cache()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_phase() -> None:
     """The reduced config in fp32: the card (kernels) against the CPU (plain
     versions), same weights, same requests."""
@@ -2511,7 +2834,7 @@ def main() -> int:
               "(src/repro_torch not found beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    device_phase()
+    card = device_phase()
     build_phase()
     entries = kernels_phase()
     entries.update(train_kernels_phase())
@@ -2520,6 +2843,7 @@ def main() -> int:
     launches, served = serve_phase()
     paths = {"serve": launches}
     profile_phase(served)
+    paths["serve (paged)"] = paged_phase(served, card)
     del served
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()

@@ -323,3 +323,30 @@ def serving_peak_bytes(cfg: ModelConfig, *, requests: int, cache_len: int,
 def serving_fits(cfg: ModelConfig, hw: HardwareProfile, **kw) -> bool:
     """Eq. (3) for serving: admit only when the modeled peak fits."""
     return serving_peak_bytes(cfg, **kw) <= hw.alpha * hw.hbm_bytes
+
+
+def serving_paged_peak_bytes(cfg: ModelConfig, *, page_bytes: float,
+                             decode_tokens: int, prefill_tokens: int = 0,
+                             dtype_bytes: int = 2,
+                             weight_bytes: float = WEIGHT_ONLY_BYTES,
+                             replica_weight_bytes: float = 0.0,
+                             resident_experts: Optional[int] = None,
+                             prefetch_experts: int = 0) -> float:
+    """Paged-serving form of Eq. (3): the cache term is ``page_bytes``, the
+    bytes of pages actually allocated (at admission the scheduler passes
+    allocated + each resident's outstanding worst-case reservation; in
+    reports, the allocator's high-watermark) instead of
+    requests * M_cache(L_max).  Everything else is the slot-map model."""
+    dims = LayerDims.from_config(cfg)
+    act = max(serve_act_bytes(dims, decode_tokens, cfg, dtype_bytes),
+              serve_act_bytes(dims, prefill_tokens, cfg, dtype_bytes))
+    return (serve_weight_bytes(cfg, weight_bytes,
+                               resident_experts=resident_experts)
+            + prefetch_experts * expert_weight_bytes(cfg, weight_bytes)
+            + replica_weight_bytes + page_bytes + act)
+
+
+def serving_paged_fits(cfg: ModelConfig, hw: HardwareProfile, **kw) -> bool:
+    """Paged admission: allocated + reserved pages must keep the modeled
+    peak within alpha * M_GPU."""
+    return serving_paged_peak_bytes(cfg, **kw) <= hw.alpha * hw.hbm_bytes

@@ -12,6 +12,12 @@ for each shape; the summary says how many graphs were captured and how long
 the captures took.  ``--eager`` runs the same steps eagerly instead, the
 counterpart of ``jax.disable_jit``, for comparisons.
 
+``--page-size`` serves from the paged cache instead of the slot map
+(``serving/paged_scheduler.py``): pages allocated on demand, with
+``--prefix-cache`` shared prompt prefixes and with ``--preemption``
+low-priority residents spilled to the host under admission pressure.
+``--inject`` fires faults at scheduler steps (``runtime/faults.py``).
+
   # full-width Mixtral-8x7B cut to 4 layers, bf16, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4
   # the same, every step eager (no CUDA graphs)
@@ -19,6 +25,11 @@ counterpart of ``jax.disable_jit``, for comparisons.
   # the reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --smoke --device cpu
+  # paged, with prefix reuse and preemption, on the card / on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4 \
+      --page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --smoke --device cpu --page-size 8 --prefix-cache --preemption
 """
 
 from __future__ import annotations
@@ -84,6 +95,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "retry-after quote")
     ap.add_argument("--max-waiting", type=int, default=0,
                     help="overload bound on the WAITING queue (0 = off)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged cache: tokens per page (0 = the slot map)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share common prompt prefixes through the page-level "
+                         "trie (requires --page-size)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="spill low-priority residents to the host when "
+                         "admission is refused (requires --page-size)")
+    ap.add_argument("--inject", default=None,
+                    help="faults at scheduler steps, e.g. 'oom@20' (a faulted "
+                         "decode wave requeues its accepted requests)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eager", action="store_true",
                     help="run every step eagerly, no CUDA graphs (the "
@@ -102,9 +124,13 @@ def setup(args: argparse.Namespace, params: dict | None = None):
     from repro_torch.configs import H100_80G, get_config
     from repro_torch.core.moe import DistContext
     from repro_torch.models import transformer
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.serving.paged_scheduler import PagedScheduler
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                ServeConfig)
 
+    if (args.prefix_cache or args.preemption) and not args.page_size:
+        raise SystemExit("--prefix-cache/--preemption require --page-size")
     device = resolve_device(args.device)
     dtype = args.dtype or ("bfloat16" if device.type == "cuda" else "float32")
     cfg = get_config(args.arch)
@@ -134,14 +160,21 @@ def setup(args: argparse.Namespace, params: dict | None = None):
                        prefill_chunk=args.prefill_chunk, hw=hw,
                        temperature=args.temperature, seed=args.seed,
                        deadline_s=args.deadline_s,
-                       max_waiting=args.max_waiting)
+                       max_waiting=args.max_waiting,
+                       page_size=args.page_size,
+                       prefix_cache=args.prefix_cache,
+                       preemption=args.preemption)
+    injector = FaultInjector.from_string(args.inject) if args.inject else None
+    mode = (f"paged(page={args.page_size}, prefix={args.prefix_cache}, "
+            f"preempt={args.preemption})" if args.page_size else "slot-map")
     print(f"serving {cfg.name} ({cfg.num_layers} layers, {dtype}, "
           f"{device}): {args.requests} requests, rate={args.arrival_rate}/s, "
           f"slots={args.max_slots}, cache_len={cache_len}, "
-          f"prefill_chunk={args.prefill_chunk}, slot-map, "
+          f"prefill_chunk={args.prefill_chunk}, {mode}, "
           f"{'eager' if args.eager else 'compiled'} steps")
-    return ContinuousBatchingScheduler(params, cfg, ctx, scfg,
-                                       eager=args.eager), trace
+    cls = PagedScheduler if args.page_size else ContinuousBatchingScheduler
+    return cls(params, cfg, ctx, scfg, eager=args.eager,
+               injector=injector), trace
 
 
 def main(argv=None):
@@ -173,6 +206,13 @@ def main(argv=None):
         print(f"steps: {after['captures'] - before['captures']} CUDA graphs "
               f"captured in {after['capture_s'] - before['capture_s']:.3f} s "
               f"(each at its first call, inside the serving time above)")
+    if args.page_size:
+        extra = ""
+        if args.prefix_cache:
+            extra = (f", prefix hit rate {m['prefix_hit_rate']:.2f} "
+                     f"({m['prefix_tokens_reused']} tokens reused)")
+        print(f"paging: page high-watermark {m['page_hwm_bytes'] / 1e9:.3f} GB"
+              f", {m['preemptions']} preemptions{extra}")
     if m["shed"] or m["faults"]:
         print(f"resilience: {m['shed']} shed "
               f"(retry-after p50 {m['retry_after_p50_s']:.1f}s), "

@@ -193,6 +193,50 @@ def write_attn_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
+def gather_paged_tokens(pool: torch.Tensor, table: torch.Tensor,
+                        token_axis: int, length: int) -> torch.Tensor:
+    """A dense token cache assembled from page-pool rows.
+
+    ``pool``: (P, *page_shape) with ``page_shape[token_axis]`` the page
+    size; ``table``: (..., n_blocks) integer page ids (page 0 is the zero
+    page, so never-filled blocks read as the zero-initialised cache).
+    Returns (..., *dense_shape): the token axis merged to
+    ``n_blocks * page`` and cut to ``length`` (a ragged layout pads its
+    last page)."""
+    lead = table.dim() - 1
+    x = pool[table.long()]                    # (..., n_blocks, *page_shape)
+    a = lead + token_axis
+    x = torch.movedim(x, lead, a)             # block axis beside its page axis
+    sh = x.shape
+    x = x.reshape(sh[:a] + (sh[a] * sh[a + 1],) + sh[a + 2:])
+    return x.narrow(a, 0, length)
+
+
+def scatter_paged_tokens(pool: torch.Tensor, table: torch.Tensor,
+                         dense: torch.Tensor, token_axis: int,
+                         page: int) -> torch.Tensor:
+    """The inverse of ``gather_paged_tokens``, in place: split a dense token
+    cache into page rows and write them at ``table``'s ids of ``pool``;
+    returns ``pool``.  A ragged token axis is zero-padded into the last
+    page's tail (never gathered back).  Duplicate ids write in no set
+    order, which is harmless: CoW-shared pages gathered by several slots
+    carry bit-identical rows, and the scratch page (id 1) takes the writes
+    of unallocated blocks and empty slots, which nothing reads."""
+    lead = table.dim() - 1
+    a = lead + token_axis
+    nb = table.shape[-1]
+    pad = nb * page - dense.shape[a]
+    if pad:
+        sh = list(dense.shape)
+        sh[a] = pad
+        dense = torch.cat([dense, dense.new_zeros(sh)], dim=a)
+    sh = dense.shape
+    dense = dense.reshape(sh[:a] + (nb, page) + sh[a + 1:])
+    dense = torch.movedim(dense, a, lead)     # (..., n_blocks, *page_shape)
+    pool.index_put_((table.long(),), dense.to(pool.dtype))
+    return pool
+
+
 def _extend_mask(spec: LayerSpec, key_pos: torch.Tensor,
                  q_pos: torch.Tensor) -> torch.Tensor:
     """(B, C, Skv) visibility: causal over key *positions* (-1 = empty slot),

@@ -178,9 +178,25 @@ class ServingGuard:
     * ``max_waiting`` -- overload bound on the WAITING queue; arrivals
       beyond it are shed immediately (0 = unbounded).
     * ``retry_after`` -- the backlog drained at the observed request
-      service rate, floored at one second."""
+      service rate, floored at one second.
+    * ``admission_escalation`` -- the memory-pressure ladder the paged
+      scheduler walks when admission would be refused: reclaim prefix-cache
+      pages (recomputable), then preempt a lower-priority resident (its
+      pages spill to host and restore losslessly), and only then leave the
+      request waiting, where deadline and overload shedding apply to
+      never-accepted requests."""
     deadline_s: Optional[float] = None
     max_waiting: int = 0
+
+    #: pressure-relief rungs, cheapest to reverse first
+    ESCALATION = ("evict_prefix", "preempt", "wait_or_shed")
+
+    def admission_escalation(self, prefix_cache: bool,
+                             preemption: bool) -> tuple:
+        """The rungs the scheduler's flags enable, in order."""
+        return tuple(r for r in self.ESCALATION
+                     if (r != "evict_prefix" or prefix_cache)
+                     and (r != "preempt" or preemption))
 
     def deadline_for(self, req) -> Optional[float]:
         return req.deadline_s if req.deadline_s is not None else self.deadline_s

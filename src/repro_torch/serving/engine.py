@@ -6,9 +6,11 @@ cache as it goes; later prefill chunks extend the cache with
 is kept as the reference oracle for cache-layout parity tests.
 
 Compiled steps are hoisted into a per-(cfg, ctx) cache, as in the JAX
-package: ``get_decode_step``, ``get_extend_step`` and ``get_prefill_fn``
-return one ``CompiledStep`` per key (``_cached``), and ``step_cache_info`` /
-``clear_step_cache`` observe and empty it.  ``jax.jit`` compiles a step per
+package: ``get_decode_step``, ``get_extend_step``, ``get_prefill_fn`` and
+``get_paged_decode_step`` (the paged cache's decode wave,
+``serving/paged_cache.py``) return one ``CompiledStep`` per key
+(``_cached``), and ``step_cache_info`` / ``clear_step_cache`` observe and
+empty it.  ``jax.jit`` compiles a step per
 argument shape; here a step is a CUDA graph per shape:
 
 * On a CUDA device the first call for each key -- the weights' tensors,
@@ -59,7 +61,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.chunking import chunk_spans
 from repro_torch.core.moe import DistContext
 from repro_torch.kernels import _cuda
-from repro_torch.models import transformer
+from repro_torch.models import blocks, transformer
 
 
 def init_serve_cache(params: dict, cfg: ModelConfig, batch: int, seq_len: int,
@@ -429,6 +431,47 @@ def get_extend_step(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
             return transformer.extend_step(params, cfg, ctx, cache, tokens)
         return CompiledStep(fn, ctx.device, donate_cache_arg=1)
     return _cached(("extend", cfg, ctx), build)
+
+
+def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
+                          layer_groups: tuple, page: int) -> CompiledStep:
+    """The compiled paged decode wave step(params, pools, gather_tables,
+    write_pages, pos (B,), tokens (B,1)) -> (logits (B,1,V), pools).
+
+    ``pools`` holds one {"k", "v"} pair of (pages, page, KH, hd) page pools
+    per layer; ``layer_groups[i]`` is layer i's page group
+    (``serving/paging.py::Group``).  ``gather_tables`` is a tuple of (B,
+    n_blocks) page ids and ``write_pages`` one of (B,) page ids, one entry
+    per distinct group in (length, ring) order.  The step gathers every
+    slot's pages into the dense (B, ...) cache, runs the unchanged
+    ``transformer.decode_step`` and writes the one row it added per slot,
+    at the slot's position in its group, to the slot's write page: the
+    pools are the step's cache, updated in place; tables, positions and
+    tokens are copied in at every call."""
+    def build():
+        groups = sorted(set(layer_groups), key=lambda g: (g.length, g.ring))
+        gidx = [groups.index(g) for g in layer_groups]
+
+        def fn(params, pools, gather_tables, write_pages, pos, tokens):
+            layers = [{"attn": {n: blocks.gather_paged_tokens(
+                          pool[n], gather_tables[j], 0, g.length)
+                          for n in ("k", "v")}}
+                      for pool, g, j in zip(pools, layer_groups, gidx)]
+            cache = {"pos": pos.clone(), "layers": layers}
+            logits, cache = transformer.decode_step(params, cfg, ctx, cache,
+                                                    tokens)
+            # the row decode_step wrote: Group.slot, clamped as its linear
+            # write is (empty slots sit at position 0)
+            rows = [pos % g.length if g.ring else pos.clamp(max=g.length - 1)
+                    for g in groups]
+            b = torch.arange(pos.shape[0], device=pos.device)
+            for pool, layer, j in zip(pools, cache["layers"], gidx):
+                for n in ("k", "v"):
+                    pool[n].index_put_((write_pages[j], rows[j] % page),
+                                       layer["attn"][n][b, rows[j]])
+            return logits, pools
+        return CompiledStep(fn, ctx.device, donate_cache_arg=1)
+    return _cached(("paged_decode", cfg, ctx, tuple(layer_groups), page), build)
 
 
 def get_prefill_fn(cfg: ModelConfig, ctx: DistContext, cache_len: int,

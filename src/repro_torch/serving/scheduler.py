@@ -23,10 +23,14 @@
 Request lifecycle: WAITING -> PREFILL -> ACTIVE -> FINISHED, plus the
 overload exit WAITING -> SHED for never-admitted requests whose deadline
 lapsed or that arrived past the queue bound.  A decode wave that runs out of
-device memory requeues its accepted requests with their tokens intact.
+device memory (or meets an injected fault, ``runtime/faults.py``) requeues
+its accepted requests with their tokens intact.
 
-The JAX package's expert-aware waves, expert-weight residency, paged cache
-and fault injection are not ported yet; asking for them raises.
+The paged cache, prefix reuse and preemption are the subclass in
+``serving/paged_scheduler.py``, which overrides this class's hooks
+(``_make_slot_pool``, ``submit``, ``_admit``, ``_install``,
+``_requeue_active``, ``_decode_wave``, ``_evict``).  The JAX package's expert-aware waves and
+expert-weight residency are not ported yet; asking for them raises.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.configs.base import H100_80G, HardwareProfile, ModelConfig
 from repro_torch.core import memory_model as mm
 from repro_torch.core.chunking import chunk_spans
 from repro_torch.core.moe import DistContext
+from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.guard import ServingGuard, is_oom_error
 from repro_torch.serving import engine
 
@@ -57,6 +62,8 @@ class Request:
     max_new_tokens: int
     arrival: float = 0.0                # seconds after scheduler start
     deadline_s: Optional[float] = None  # admission deadline (None = guard's)
+    priority: int = 0                   # preemption rank (paged scheduler):
+                                        # higher may preempt strictly lower
     # -- runtime (scheduler-owned) -----------------------------------------
     state: str = WAITING
     slot: int = -1
@@ -64,6 +71,7 @@ class Request:
     cache: object = None                # its (B=1) cache while prefilling
     next_token: int = -1
     out: list = field(default_factory=list)
+    t_first: Optional[float] = None     # first-token time (s after start)
     t_done: Optional[float] = None
     accepted: bool = False              # ever admitted -- shed-exempt
     prompt: Optional[np.ndarray] = None
@@ -71,6 +79,11 @@ class Request:
                                         # re-prefill must not resample
     requeues: int = 0
     retry_after: Optional[float] = None
+    # -- paged scheduler runtime --------------------------------------------
+    rp: object = None                   # its RequestPages while resident
+    pos: int = 0                        # decode write position (host-side)
+    spill: object = None                # its pages on the host while preempted
+    preemptions: int = 0
 
 
 @dataclass(frozen=True)
@@ -85,27 +98,31 @@ class ServeConfig:
     seed: int = 0                       # sampling seed (temperature > 0)
     deadline_s: Optional[float] = None
     max_waiting: int = 0
-    # the JAX package's other serving paths; not ported yet
-    page_size: int = 0
-    prefix_cache: bool = False
-    preemption: bool = False
+    # paging (serving/paged_scheduler.py; 0/False = the slot map)
+    page_size: int = 0                  # tokens per cache page
+    prefix_cache: bool = False          # trie-shared prompt prefixes
+    preemption: bool = False            # spill low-priority residents to the
+                                        # host under admission pressure
+    # the JAX package's expert-aware serving; not ported yet
     expert_batching: bool = False
     wave_size: int = 0
     resident_experts: int = 0
     probe_router: bool = False
 
 
-_NOT_PORTED = ("page_size", "prefix_cache", "preemption", "expert_batching",
-               "wave_size", "resident_experts", "probe_router")
+_NOT_PORTED = ("expert_batching", "wave_size", "resident_experts",
+               "probe_router")
 
 
 class ContinuousBatchingScheduler:
     def __init__(self, params: dict, cfg: ModelConfig, ctx: DistContext,
-                 scfg: ServeConfig, eager: bool = False):
+                 scfg: ServeConfig, eager: bool = False,
+                 injector: Optional[FaultInjector] = None):
         asked = [f for f in _NOT_PORTED if getattr(scfg, f)]
         if asked:
             raise NotImplementedError(f"serving options {asked} are not "
-                                      "ported yet; the port serves the slot map")
+                                      "ported yet; the port serves the slot "
+                                      "map and the paged cache")
         if cfg.encoder_layers or cfg.num_patch_tokens:
             raise ValueError("continuous batching serves token-only decoders; "
                              f"{cfg.name!r} needs per-request encoder state")
@@ -118,9 +135,10 @@ class ContinuousBatchingScheduler:
         self._decode = engine.get_decode_step(cfg, ctx)
         self._extend = engine.get_extend_step(cfg, ctx)
         self._prefill = engine.get_prefill_fn(cfg, ctx, scfg.cache_len)
-        self.cache = self._static(self._decode, scfg.max_slots)
+        self.cache = self._make_slot_pool()
         # the prefilling request's cache (None: each prefill makes its own)
         self._pcache = None if eager else self._static(self._extend, 1)
+        self.injector = injector
         self.guard = ServingGuard(deadline_s=scfg.deadline_s,
                                   max_waiting=scfg.max_waiting)
         self.steps = 0
@@ -134,6 +152,10 @@ class ContinuousBatchingScheduler:
         self.shed: list[Request] = []
         self.requeued = 0
         self.faults = 0
+
+    def _make_slot_pool(self):
+        """The decode step's slot pool: one cache row per slot."""
+        return self._static(self._decode, self.scfg.max_slots)
 
     def _static(self, step: engine.CompiledStep, rows: int) -> dict:
         """A zeroed fp32 cache of ``rows`` rows: one of ``step``'s static
@@ -275,6 +297,8 @@ class ContinuousBatchingScheduler:
         _copy_row(self.cache, req.cache, req.slot)
         req.cache = None
         req.state = ACTIVE
+        if req.t_first is None:
+            req.t_first = now
         self.active[req.slot] = req
         self._prefilling = None
         if req.pending_token >= 0:
@@ -319,6 +343,8 @@ class ContinuousBatchingScheduler:
         for slot, req in self.active.items():
             toks[slot, 0] = req.next_token
         try:
+            if self.injector is not None:
+                self.injector.maybe_fail_step(self.steps, "decode_wave")
             logits, self.cache = self._call(
                 self._decode, self.cache,
                 torch.as_tensor(toks, device=self.ctx.device))
@@ -344,6 +370,8 @@ class ContinuousBatchingScheduler:
         """One scheduler step: expire lapsed deadlines, admit, run one
         prefill chunk, run one decode wave.  Returns False when there was
         nothing to do."""
+        if self.injector is not None:
+            self.injector.maybe_stall(self.steps)      # a stalled prefill
         self._expire_deadlines(now)
         self._admit()
         busy = False

@@ -1011,6 +1011,156 @@ def test_a_capture_that_syncs_raises_and_runs_nothing_eagerly(cuda, monkeypatch)
     engine.clear_step_cache()
 
 
+# -- the paged serving path's decode graph -----------------------------------
+
+def _paged_pool(params, cfg, cuda, cache_len, prompt, eager):
+    """A 2-slot pool holding one request's prefill of ``prompt`` tokens."""
+    from repro_torch.serving.paged_cache import PagedCachePool
+    ctx = DistContext(device=cuda)
+    toks = torch.arange(prompt, device=cuda).remainder(cfg.vocab_size)[None]
+    logits, cache = engine.prefill_chunked(params, cfg, ctx, toks, cache_len, 8)
+    pool = PagedCachePool(params, cfg, ctx, 2, cache_len, 8, eager=eager)
+    rp = pool.ops.new_request()
+    pool.install(rp, cache, prompt)
+    return pool, rp, logits, cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_len,prompt", [(48, 20), (96, 72)])
+def test_paged_decode_graph_replay_equals_eager(cuda, cache_len, prompt):
+    """The paged wave's graph (pools as its static cache, tables copied in)
+    against its eager function over 12 waves across page boundaries: logits
+    and pools bit for bit, one capture."""
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    graph_pool, rp_g, logits, _ = _paged_pool(params, cfg, cuda, cache_len, prompt, False)
+    eager_pool, rp_e, _, _ = _paged_pool(params, cfg, cuda, cache_len, prompt, True)
+    tok = int(logits[0, -1].argmax())
+    for i in range(12):
+        toks = np.asarray([[tok], [0]])
+        pos = np.asarray([prompt + i, 0])
+        for pool, rp in ((graph_pool, rp_g), (eager_pool, rp_e)):
+            pool.prepare_decode_write(rp, prompt + i)
+        got = graph_pool.decode_wave(params, [rp_g, None], pos, toks)
+        want = eager_pool.decode_wave(params, [rp_e, None], pos, toks)
+        assert torch.equal(got, want), f"wave {i}"
+        tok = int(want[0, -1].argmax())
+    assert rp_g.tables == rp_e.tables
+    for a, b in zip(engine.leaves(graph_pool.pools), engine.leaves(eager_pool.pools)):
+        assert torch.equal(a[2:], b[2:])     # the scratch page's writes have no order
+    assert graph_pool._decode.captures == 1
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_len,prompt", [(48, 20), (96, 72)])
+def test_paged_decode_equals_the_slot_map_on_the_card(cuda, cache_len, prompt):
+    """Compiled paged waves against the compiled slot-map decode step on a
+    2-slot pool (slot 1 empty): the occupied slot's logits bit for bit."""
+    from repro_torch.serving.scheduler import _copy_row
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    pool, rp, logits, cache = _paged_pool(params, cfg, cuda, cache_len, prompt, False)
+    slots = engine.init_serve_cache(params, cfg, 2, cache_len)
+    _copy_row(slots, cache, 0)
+    step = engine.get_decode_step(cfg, DistContext(device=cuda))
+    tok = int(logits[0, -1].argmax())
+    for i in range(12):
+        toks = torch.tensor([[tok], [0]], device=cuda)
+        want, slots = step(params, slots, toks)
+        pool.prepare_decode_write(rp, prompt + i)
+        got = pool.decode_wave(params, [rp, None], np.asarray([prompt + i, 0]),
+                               toks.cpu().numpy())
+        assert torch.equal(got[0], want[0]), f"wave {i}"
+        tok = int(want[0, -1].argmax())
+    engine.clear_step_cache()
+
+
+def _paged_serve(params, cfg, cuda, eager, inject=None, sched=None):
+    """The serving trace through the paged scheduler with prefix cache and
+    preemption: (streams, admission order, (waves, chunks, faults))."""
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.serving.paged_scheduler import PagedScheduler
+    rng = np.random.default_rng(7)
+    stem = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    reqs = [Request(rid=i, tokens=np.concatenate(
+                [stem, rng.integers(0, cfg.vocab_size, S).astype(np.int32)]),
+                max_new_tokens=g) for i, (S, g) in enumerate(SERVE_TRACE[:4])]
+    if sched is None:
+        sched = PagedScheduler(
+            params, cfg, DistContext(device=cuda),
+            ServeConfig(max_slots=2, cache_len=96, prefill_chunk=16, page_size=16,
+                        prefix_cache=True, preemption=True), eager=eager,
+            injector=FaultInjector.from_string(inject) if inject else None)
+    m = sched.run(reqs)
+    return ([r.out for r in reqs], list(sched.admission_order),
+            (m["decode_waves"], m["prefill_chunks"], m["faults"])), sched
+
+
+@pytest.mark.cuda
+def test_paged_scheduler_compiled_equals_eager_and_the_slot_map(cuda):
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    eager, _ = _paged_serve(params, cfg, cuda, eager=True)
+    compiled, sched = _paged_serve(params, cfg, cuda, eager=False)
+    assert compiled == eager
+    assert sched.pool._decode.graphs() == 1
+    assert sched.metrics(1.0)["prefix_hits"] >= 1
+    slot_map = ContinuousBatchingScheduler(
+        params, cfg, DistContext(device=cuda),
+        ServeConfig(max_slots=2, cache_len=96, prefill_chunk=16))
+    rng = np.random.default_rng(7)
+    stem = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    reqs = [Request(rid=i, tokens=np.concatenate(
+                [stem, rng.integers(0, cfg.vocab_size, S).astype(np.int32)]),
+                max_new_tokens=g) for i, (S, g) in enumerate(SERVE_TRACE[:4])]
+    slot_map.run(reqs)
+    assert [r.out for r in reqs] == compiled[0]
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_rebuild_keeps_the_pools_pointers_and_the_warm_graph(cuda):
+    """A faulted wave on the card zeroes the pools in place: every pool
+    keeps its data_ptr, the warm graph replays after it (no new capture),
+    and the streams equal the unfaulted run's."""
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    clean, sched = _paged_serve(params, cfg, cuda, eager=False)
+    ptrs = [t.data_ptr() for t in engine.leaves(sched.pool.pools)]
+    captures = sched.pool._decode.captures
+    sched._rebuild_pools()
+    assert [t.data_ptr() for t in engine.leaves(sched.pool.pools)] == ptrs
+    assert all(not t.any() for t in engine.leaves(sched.pool.pools))
+    again, _ = _paged_serve(params, cfg, cuda, eager=False, sched=sched)
+    assert again[0] == clean[0]
+    assert again[1][len(clean[1]):] == clean[1]     # this run's admissions
+    assert sched.pool._decode.captures == captures
+    faulted, fs = _paged_serve(params, cfg, cuda, eager=False, inject="oom@6")
+    assert faulted[0] == clean[0] and faulted[2][2] == 1
+    fs.pool.alloc.audit()
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_paged_wave_makes_no_host_sync(cuda):
+    """The paged decode wave's eager function holds nothing a graph cannot."""
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    pool, rp, _, _ = _paged_pool(params, cfg, cuda, 96, 72, True)
+    pool.prepare_decode_write(rp, 72)
+    step = pool._decode
+    args = (pool.pools, pool._tables([rp, None]), pool._write_pages([rp, None], [72, 0]),
+            pool._ids([72, 0]), pool._ids([[1], [0]]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.eager(params, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    engine.clear_step_cache()
+
+
 # -- any machine ------------------------------------------------------------
 
 def test_wrappers_check_shapes_and_types():

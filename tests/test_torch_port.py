@@ -18,6 +18,7 @@ from repro_torch.core.moe import DistContext
 from repro_torch.kernels import build
 from repro_torch.launch import serve
 from repro_torch.models import transformer
+from repro_torch.serving.paged_scheduler import PagedScheduler
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            Request, ServeConfig)
 
@@ -92,11 +93,17 @@ def test_layers_cut_keeps_every_width():
                                     dict(resident_experts=2),
                                     dict(probe_router=True)])
 def test_unported_serving_paths_raise(option):
+    """The expert-aware options are not ported and raise; the paging options
+    are (serving/paged_scheduler.py) and construct."""
     cfg = get_config("mixtral-8x7b").reduced()
     params = transformer.init_params(cfg, device=CPU)
+    ctx = DistContext(device=CPU)
+    if option.keys() & {"page_size", "prefix_cache", "preemption"}:
+        scfg = ServeConfig(**{"page_size": 8, **option})
+        assert PagedScheduler(params, cfg, ctx, scfg).pool.page == scfg.page_size
+        return
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingScheduler(params, cfg, DistContext(device=CPU),
-                                    ServeConfig(**option))
+        ContinuousBatchingScheduler(params, cfg, ctx, ServeConfig(**option))
 
 
 def test_scheduler_sheds_and_refuses_like_the_reference():
