@@ -2662,6 +2662,255 @@ def paged_phase(served: dict, card: str) -> dict:
     return launches
 
 
+# the expert-aware phase: the serve trace in the reference test's five slot-
+# map modes and two paged ones, then (c) admission at a budget between the
+# all-resident model's peaks for BUDGET_AT and BUDGET_AT + 1 requests
+EXPERT_MODES = (
+    ("default", []),
+    ("wave 2", ["--wave-size", "2"]),
+    ("wave 2 + batching", ["--wave-size", "2", "--expert-batching"]),
+    ("wave 2 + batching + resident 2", ["--wave-size", "2", "--expert-batching",
+                                        "--resident-experts", "2"]),
+    ("batching + resident 2 + probe", ["--expert-batching", "--resident-experts", "2",
+                                       "--probe-router"]))
+EXPERT_PAGED = (
+    ("paged, wave 2 + batching + resident 2",
+     ["--page-size", str(PAGE), "--wave-size", "2", "--expert-batching",
+      "--resident-experts", "2"]),
+    ("paged + prefix, batching + resident 2",
+     ["--page-size", str(PAGE), "--prefix-cache", "--expert-batching",
+      "--resident-experts", "2"]))
+BUDGET_AT = 2
+RESTORE_SAMPLES = 6
+
+
+def weights_digest(params) -> list:
+    """Per weight and per leading row (an expert, for the expert weights):
+    the sum and the sum of squares of its 16-bit words, exact in int64 on
+    the card.  A zeroed, swapped or altered row changes it."""
+    import torch
+    from repro_torch.serving import engine
+    out = []
+    with torch.no_grad():
+        for t in engine.leaves(params):
+            words = t.reshape(t.shape[0] if t.dim() > 1 else 1, -1).view(torch.int16)
+            for rows in words.split(64):
+                w = rows.long()
+                out.append(torch.stack([w.sum(1), (w * w).sum(1)]).cpu())
+    return out
+
+
+def _captures() -> dict:
+    from repro_torch.serving import engine
+    return {key: step.captures for key, step in engine._STEP_CACHE.items()}
+
+
+def _expert_run(argv, params, record=None) -> dict:
+    """One run of the launcher's scheduler on ``params``, closed at the end
+    (the residency tier hands the weights back); the streams, metrics, the
+    residency's mirror seconds and each compiled step's captures before and
+    after."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve
+
+    sched, trace = serve.setup(serve.parse_args(argv), params=params)
+    if record is not None:
+        _recording(sched, record)
+    torch.cuda.synchronize()
+    before = _captures()
+    try:
+        m = sched.run(trace)
+    finally:
+        sched.close()
+    torch.cuda.synchronize()
+    run = {"metrics": m, "before": before, "after": _captures(),
+           "streams": [r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
+           "passes": m["decode_waves"] + m["prefill_chunks"] + m["demand_reruns"],
+           "mirror_s": sched.residency.mirror_s if sched.residency else None,
+           "mirror_bytes": sched.residency.mirror_bytes if sched.residency else 0}
+    unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
+    if sched.queue or sched.active or unfinished or m["nonfinite_logits"] or m["shed"]:
+        raise SystemExit(f"{' '.join(argv[-6:])}: not every request finished with "
+                         f"finite logits (short {unfinished}, shed {m['shed']})")
+    del sched
+    gc.collect()
+    return run
+
+
+def _restore_ms(params, cfg) -> tuple:
+    """Seconds of one expert-layer restore (w1, w3 and w2 rows of one expert
+    from the pinned mirror) over RESTORE_SAMPLES cold experts, and the
+    mirror's build seconds, on a residency of its own."""
+    import torch
+    from repro_torch.serving.residency import ExpertResidency
+
+    res = ExpertResidency(params, cfg, 2)
+    try:
+        res.offload_cold(params)
+        times = []
+        cold = [(j, e) for j in range(res.num_layers) for e in range(res.num_experts)
+                if e not in res.resident[j]][:RESTORE_SAMPLES]
+        for pair in cold:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.ensure(params, [pair])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        res.close(params)
+    return times, res.mirror_s, res.mirror_bytes
+
+
+def expert_phase(served: dict, card: str) -> dict:
+    """Expert-aware serving on the serve phase's weights: (a) the serve trace
+    in five slot-map modes and (b) two paged ones, streams equal to the serve
+    phase's and every sampled logits row bit-equal to the default run's; (c)
+    admission at a budget between the all-resident model's peaks for
+    BUDGET_AT and BUDGET_AT + 1 requests; (d) the counters, a restore's rate,
+    the mirror's build time and a masked wave's device time; (e) the weights
+    handed back bit for bit.  Returns the grouped kernels' launches over the
+    phase's runs."""
+    phase("serve (expert-aware)")
+    import numpy as np
+    import torch
+    from repro_torch.core import memory_model as mm
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.serving import engine
+
+    t_phase = time.perf_counter()
+    params, cfg, ctx = served["params"], served["cfg"], served["ctx"]
+    n_moe = sum(1 for spec in cfg.layer_specs() if spec.ffn == "moe")
+    digest = weights_digest(params)
+    counters = (gm.grouped_swiglu, gm.grouped_matmul)
+    for fn in counters:
+        fn.launches = 0
+    rows, runs = {}, {}
+    for name, flags in EXPERT_MODES + EXPERT_PAGED:
+        rows[name] = {}
+        runs[name] = _expert_run(SERVE_ARGS + flags, params, record=rows[name])
+    # (c) the budget: between the all-resident model's peaks at BUDGET_AT and
+    # BUDGET_AT + 1 requests, at the serve trace's shapes
+    scfg = served["scfg"]
+    kw = dict(cache_len=scfg.cache_len, decode_tokens=scfg.max_slots,
+              prefill_tokens=scfg.prefill_chunk, dtype_bytes=scfg.dtype_bytes)
+    lo, hi = (mm.serving_peak_bytes(cfg, requests=n, **kw)
+              for n in (BUDGET_AT, BUDGET_AT + 1))
+    budget = ["--budget-gb", repr((lo + hi) / 2e9)]
+    for name, flags in (("budget, all resident", budget),
+                        ("budget, resident 2", budget + ["--resident-experts", "2"])):
+        runs[name] = _expert_run(SERVE_ARGS + flags, params)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    torch.cuda.synchronize()
+    t_runs = time.perf_counter() - t_phase
+
+    want = served["streams"]
+    base = rows["default"]
+    for name, r in runs.items():
+        if r["streams"] != want:
+            raise SystemExit(f"the {name} run's streams differ from the serve phase's")
+        if name in rows:
+            diff = [k for k in base if not np.array_equal(base[k], rows[name].get(k))]
+            if diff or rows[name].keys() != base.keys():
+                raise SystemExit(f"the {name} run's logits differ from the default "
+                                 f"run's at {diff[:4]} of {len(base)} sampled rows")
+        grown = {str(k[0]): (r["before"][k], r["after"][k]) for k in r["before"]
+                 if r["before"][k] and r["after"][k] != r["before"][k]}
+        if r["metrics"].get("residency") and grown:
+            raise SystemExit(f"the {name} run captured graphs of warm steps across "
+                             f"its restores: {grown}")
+    passes = sum(r["passes"] for r in runs.values())
+    for name, n in launches.items():
+        if n != n_moe * passes:
+            raise SystemExit(f"{name} launched {n} times over the expert-aware runs; "
+                             f"they run it {n_moe * passes} times (once per MoE layer "
+                             f"per pass and re-run)")
+    full, tier = (runs[k]["metrics"] for k in ("budget, all resident",
+                                               "budget, resident 2"))
+    if tier["max_occupancy"] <= full["max_occupancy"]:
+        raise SystemExit(f"at {(lo + hi) / 2e9:.3f} GB the tier admitted "
+                         f"{tier['max_occupancy']} at once, all-resident "
+                         f"{full['max_occupancy']}")
+    after = weights_digest(params)
+    if len(after) != len(digest) or any(not torch.equal(a, b)
+                                        for a, b in zip(digest, after)):
+        raise SystemExit("the weights differ from the serve phase's after the phase")
+
+    nrows = len(base)
+    print(f"{card}: (a, b) serve trace in {len(rows)} modes: streams equal the serve "
+          f"phase's; all {nrows} sampled logits rows of every mode bit-equal to the "
+          f"default run's (members of masked waves and clean runs after demand "
+          f"restores); warm steps captured no graph across restores", flush=True)
+    for name, r in runs.items():
+        m = r["metrics"]
+        res = m.get("residency")
+        line = (f"{card}: {name}: {m['tok_per_s']:.1f} tok/s, p50 "
+                f"{m['latency_p50_s']:.3f} s, p99 {m['latency_p99_s']:.3f} s, "
+                f"{m['decode_waves']} waves, {m['prefill_chunks']} chunks, "
+                f"{1e3 * m['elapsed_s'] / r['passes']:.2f} ms a pass, max_occupancy "
+                f"{m['max_occupancy']}, modeled peak {m['modeled_peak_bytes'] / 1e9:.3f} GB")
+        if m["expert_waves"]:
+            line += (f"; mean_distinct_experts {m['mean_distinct_experts']:.3f}, "
+                     f"mean_wave_occupancy {m['mean_wave_occupancy']:.3f}, "
+                     f"forced_includes {m['forced_includes']}")
+        if res:
+            line += (f"; restores {res['restores']} (demand_restores "
+                     f"{res['demand_restores']}), offloads {res['offloads']}, hwm "
+                     f"{res['resident_experts_hwm']}, prefetch_hits "
+                     f"{m['prefetch_hits']}, prefetch_misses {m['prefetch_misses']}, "
+                     f"demand_reruns {m['demand_reruns']}; pinned mirror "
+                     f"{r['mirror_bytes'] / 1e9:.3f} GB built in {r['mirror_s']:.3f} s")
+        print(line, flush=True)
+    print(f"{card}: (c) budget {(lo + hi) / 2e9:.4f} GB (all-resident model "
+          f"{lo / 1e9:.4f} / {hi / 1e9:.4f} GB at {BUDGET_AT} / {BUDGET_AT + 1} "
+          f"requests): max_occupancy {tier['max_occupancy']} with 2 resident experts "
+          f"against {full['max_occupancy']}, 0 shed, streams equal", flush=True)
+
+    # (d) one expert-layer restore, the mirror's build, a masked wave
+    times, mirror_s, mirror_bytes = _restore_ms(params, cfg)
+    per = mm.expert_weight_bytes(cfg)
+    ms = sorted(1e3 * t for t in times)
+    print(f"{card}: (d) one expert-layer restore ({per / 1e6:.1f} MB, pinned host -> "
+          f"card): {ms[len(ms) // 2]:.3f} ms median ({ms[0]:.3f}-{ms[-1]:.3f} over "
+          f"{len(ms)}), {per / (ms[len(ms) // 2] * 1e6):.2f} GB/s; the pinned mirror "
+          f"({mirror_bytes / 1e9:.3f} GB) built in {1e3 * mirror_s:.1f} ms", flush=True)
+    masked = engine.get_decode_step_masked(cfg, ctx)
+    plain = engine.get_decode_step(cfg, ctx)
+    holder = _Holder()
+    mk = masked.static_cache(engine.init_serve_cache(params, cfg, 4, scfg.cache_len),
+                             holder)
+    pl = plain.static_cache(engine.init_serve_cache(params, cfg, 4, scfg.cache_len),
+                            holder)
+    tok = torch.ones((4, 1), dtype=torch.long, device=ctx.device)
+    mask = torch.tensor([True, False, True, False], device=ctx.device)
+    pos = (mk["pos"].clone(), pl["pos"].clone())
+
+    def masked_wave():
+        mk["pos"].copy_(pos[0])
+        masked(params, mk, tok, mask)
+
+    def plain_wave():
+        pl["pos"].copy_(pos[1])
+        plain(params, pl, tok)
+    m_ms, m_host, note_m = device_ms(masked_wave)
+    p_ms, p_host, note_p = device_ms(plain_wave)
+    print(f"{card}: (d) warm 4-slot decode wave, masked (2 members) / slot map: "
+          f"device {m_ms:.4f} / {p_ms:.4f} ms, host {m_host:.4f} / {p_host:.4f} ms"
+          f"{note_m}{note_p}", flush=True)
+    print(f"{card}: (e) every weight's digest equals the serve phase's after "
+          f"{sum(1 for r in runs.values() if r['metrics'].get('residency'))} "
+          f"residency runs; expert-aware runs {t_runs:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del mk, pl, holder
+    engine.clear_step_cache()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()                    # the pinned mirrors' cached blocks
+    return launches
+
+
 def check_phase() -> None:
     """The reduced config in fp32: the card (kernels) against the CPU (plain
     versions), same weights, same requests."""
@@ -2844,6 +3093,7 @@ def main() -> int:
     paths = {"serve": launches}
     profile_phase(served)
     paths["serve (paged)"] = paged_phase(served, card)
+    paths["serve (expert-aware)"] = expert_phase(served, card)
     del served
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()

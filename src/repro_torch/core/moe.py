@@ -143,7 +143,8 @@ def _moe_ffn_rows(params: dict, x: torch.Tensor, cfg: MoEConfig,
                             r.weights.reshape(B * t_c, k))
         stats = {"aux_loss": r.aux_loss.sum(),
                  "load": r.load.float(),
-                 "drops": plan.drops.float()}
+                 "drops": plan.drops.float(),
+                 "row_load": uplan.expert_load.reshape(B, E).float()}
         return y.reshape(B, t_c, d), stats
 
     y, stats = chunked_map(chunk_fn, x, ctx.moe_chunks, dim=1,
@@ -166,7 +167,8 @@ def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
     w = (onehot * r.weights[..., None].to(h.dtype)).sum(1)            # (T, E)
     y = torch.einsum("te,etd->td", w, h)
     stats = {"aux_loss": r.aux_loss, "load": r.load.float(),
-             "drops": torch.zeros((), dtype=torch.float32, device=x.device)}
+             "drops": torch.zeros((), dtype=torch.float32, device=x.device),
+             "row_load": onehot.float().sum(1).reshape(B, S, -1).sum(1)}
     return y.reshape(B, S, d), stats
 
 
@@ -188,6 +190,9 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, ctx: DistContext):
     * ``aux_loss`` -- float32 scalar, the mean per-chunk Switch auxiliary
       loss, averaged over chunks and batch rows (EP: over chunks and
       ranks, each rank's own aux on its own tokens).
+    * ``row_load`` -- (B, E) float32, ``load`` per batch row (the local and
+      dense paths only): what a decode slot routed, the per-slot telemetry
+      of expert-aware serving, where the JAX package runs one step per slot.
     """
     strategy = resolve_strategy(cfg, ctx, x.shape)
     if strategy == "ep_shardmap":

@@ -18,6 +18,15 @@ counterpart of ``jax.disable_jit``, for comparisons.
 low-priority residents spilled to the host under admission pressure.
 ``--inject`` fires faults at scheduler steps (``runtime/faults.py``).
 
+``--wave-size``, ``--expert-batching`` and ``--resident-experts`` serve
+expert-aware (``serving/residency.py``): subset decode waves grouped by
+predicted expert overlap, and only that many experts per MoE layer resident
+on the device, the rest restored from a host mirror ahead of the wave or on
+demand; tokens are those of the all-resident run.  ``--probe-router`` seeds
+the prediction of a request with no telemetry yet.  ``--placement-peers``
+chooses a static expert placement from ``--placement-loads``; admission
+prices its replicas, and the experts it replicates stay resident.
+
   # full-width Mixtral-8x7B cut to 4 layers, bf16, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4
   # the same, every step eager (no CUDA graphs)
@@ -30,6 +39,12 @@ low-priority residents spilled to the host under admission pressure.
       --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --smoke --device cpu --page-size 8 --prefix-cache --preemption
+  # expert-aware, 2 of 8 experts resident per layer, on the card / on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 4 \
+      --expert-batching --wave-size 2 --resident-experts 2 --probe-router
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --smoke --device cpu --expert-batching --wave-size 2 --resident-experts 2 \
+      --probe-router
 """
 
 from __future__ import annotations
@@ -103,6 +118,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--preemption", action="store_true",
                     help="spill low-priority residents to the host when "
                          "admission is refused (requires --page-size)")
+    ap.add_argument("--placement-peers", type=int, default=0,
+                    help="choose a static expert placement over this many EP "
+                         "peers at build, from --placement-loads (0 = identity)")
+    ap.add_argument("--placement-loads", default=None,
+                    help="JSON file with an (L_moe, E) load matrix (e.g. a "
+                         "training run's telemetry EMA) the placement is "
+                         "solved from; omitted = identity")
+    ap.add_argument("--placement-replicas", type=int, default=0,
+                    help="extra hot-expert weight slots per peer; admission "
+                         "prices their weight bytes")
+    ap.add_argument("--expert-batching", action="store_true",
+                    help="group decode waves by predicted expert overlap "
+                         "instead of FIFO age order")
+    ap.add_argument("--wave-size", type=int, default=0,
+                    help="max members per decode wave (0 = every resident); "
+                         ">0 engages the masked subset wave")
+    ap.add_argument("--max-wave-wait", type=int, default=4,
+                    help="starvation guard: a resident that skipped this many "
+                         "waves is force-included in the next one")
+    ap.add_argument("--resident-experts", type=int, default=0,
+                    help="per-MoE-layer resident expert capacity; cold experts "
+                         "are offloaded to the host and restored ahead of the "
+                         "wave or on demand (0 = all resident)")
+    ap.add_argument("--probe-router", action="store_true",
+                    help="a router-only probe on prompt tokens seeds the "
+                         "prefetch prediction before telemetry exists")
     ap.add_argument("--inject", default=None,
                     help="faults at scheduler steps, e.g. 'oom@20' (a faulted "
                          "decode wave requeues its accepted requests)")
@@ -139,6 +180,18 @@ def setup(args: argparse.Namespace, params: dict | None = None):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     ctx = DistContext(device=device)
+    replica_bytes = 0.0
+    if args.placement_peers:
+        import json
+
+        from repro_torch.serving.engine import build_placements
+        loads = None
+        if args.placement_loads:
+            with open(args.placement_loads) as f:
+                loads = np.asarray(json.load(f), dtype=np.float64)
+        ctx, replica_bytes = build_placements(
+            cfg, ctx, args.placement_peers, loads=loads,
+            replicas=args.placement_replicas)
     if params is None:
         params = transformer.init_params(cfg, device=device,
                                          dtype=getattr(torch, dtype),
@@ -163,8 +216,19 @@ def setup(args: argparse.Namespace, params: dict | None = None):
                        max_waiting=args.max_waiting,
                        page_size=args.page_size,
                        prefix_cache=args.prefix_cache,
-                       preemption=args.preemption)
+                       preemption=args.preemption,
+                       replica_weight_bytes=replica_bytes,
+                       expert_batching=args.expert_batching,
+                       wave_size=args.wave_size,
+                       max_wave_wait=args.max_wave_wait,
+                       resident_experts=args.resident_experts,
+                       probe_router=args.probe_router)
     injector = FaultInjector.from_string(args.inject) if args.inject else None
+    if args.placement_peers and ctx.placements is not None:
+        placed = sum(1 for p in ctx.placements if not p.is_identity)
+        print(f"placement: {placed}/{len(ctx.placements)} layers re-homed "
+              f"over {args.placement_peers} peers, replica weights "
+              f"{replica_bytes / 1e9:.3f} GB priced by admission")
     mode = (f"paged(page={args.page_size}, prefix={args.prefix_cache}, "
             f"preempt={args.preemption})" if args.page_size else "slot-map")
     print(f"serving {cfg.name} ({cfg.num_layers} layers, {dtype}, "
@@ -179,13 +243,17 @@ def setup(args: argparse.Namespace, params: dict | None = None):
 
 def main(argv=None):
     """Parse ``argv``, serve the trace, print the summary; returns
-    (scheduler, metrics) to an in-process caller."""
+    (scheduler, metrics) to an in-process caller, the scheduler closed (its
+    weights whole again)."""
     from repro_torch.serving import engine
 
     args = parse_args(argv)
     sched, trace = setup(args)
     before = engine.step_cache_info()
-    m = sched.run(trace)
+    try:
+        m = sched.run(trace)
+    finally:
+        sched.close()
     after = engine.step_cache_info()
     gen_lo, gen_hi = (int(s) for s in args.gen.split(","))
 
@@ -206,6 +274,18 @@ def main(argv=None):
         print(f"steps: {after['captures'] - before['captures']} CUDA graphs "
               f"captured in {after['capture_s'] - before['capture_s']:.3f} s "
               f"(each at its first call, inside the serving time above)")
+    if m["expert_waves"]:
+        print(f"expert waves: {m['expert_waves']} waves, mean "
+              f"{m['mean_distinct_experts']:.2f} distinct experts / "
+              f"{m['mean_wave_occupancy']:.2f} members per wave, "
+              f"{m['forced_includes']} starvation force-includes")
+    if "residency" in m:
+        r = m["residency"]
+        print(f"residency: {args.resident_experts} resident experts/layer "
+              f"(hwm {r['resident_experts_hwm']}), prefetch "
+              f"{m['prefetch_hits']} hits / {m['prefetch_misses']} misses, "
+              f"{r['restores']} restores ({r['demand_restores']} on demand, "
+              f"{m['demand_reruns']} re-runs), {r['offloads']} offloads")
     if args.page_size:
         extra = ""
         if args.prefix_cache:

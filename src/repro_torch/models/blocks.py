@@ -110,8 +110,11 @@ def _is_ring(spec: LayerSpec, num_slots: int) -> bool:
 
 
 def attn_mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                      cfg: ModelConfig, spec: LayerSpec, ctx: DistContext):
-    """x: (B, 1, d); cache {"k","v"}: (B, Sc, KH, hd); pos: (B,) int."""
+                      cfg: ModelConfig, spec: LayerSpec, ctx: DistContext,
+                      mask: Optional[torch.Tensor] = None):
+    """x: (B, 1, d); cache {"k","v"}: (B, Sc, KH, hd); pos: (B,) int.
+    ``mask`` ((B,) bool): only its rows write their new K/V; the others
+    write back the row they hold (a masked subset wave)."""
     B = x.shape[0]
     q, k, v = _qkv_base(p, x, cfg, spec, pos[:, None])
     Sc = cache["k"].shape[1]
@@ -128,8 +131,11 @@ def attn_mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         write = torch.clamp(pos, max=Sc - 1)
         length = pos + 1
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, write] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, write] = v[:, 0].to(cache["v"].dtype)
+    for name, new in (("k", k), ("v", v)):
+        new = new[:, 0].to(cache[name].dtype)
+        if mask is not None:
+            new = torch.where(mask[:, None, None], new, cache[name][rows, write])
+        cache[name][rows, write] = new
     out = decode_attention(q, cache["k"], cache["v"], length)
     return _out_proj(p, out, x), cache
 
@@ -172,24 +178,31 @@ def build_attn_cache(k: torch.Tensor, v: torch.Tensor, spec: LayerSpec,
     return {"k": lay(k), "v": lay(v)}
 
 
+def chunk_write_slots(spec: LayerSpec, Sc: int, pos0: torch.Tensor,
+                      C: int) -> torch.Tensor:
+    """(B, min(C, Sc)) cache slots a C-token chunk at per-row positions
+    ``pos0`` writes, in the order of its last min(C, Sc) tokens (a ring
+    keeps only the last Sc tokens of a chunk that wraps it whole)."""
+    if _is_ring(spec, Sc):
+        n = min(C, Sc)
+        first = pos0 + C - n
+        return (first[:, None] + torch.arange(n, device=pos0.device)) % Sc
+    if C > Sc:
+        raise ValueError(f"a {C}-token chunk does not fit the {Sc}-slot "
+                         f"linear cache")
+    return torch.clamp(pos0, max=Sc - C)[:, None] + torch.arange(C, device=pos0.device)
+
+
 def write_attn_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
                      pos0: torch.Tensor, spec: LayerSpec) -> dict:
     """Write a C-token chunk starting at per-row positions ``pos0`` ((B,))
     into the cache in place, ring or linear."""
     B, C = k.shape[:2]
-    Sc = cache["k"].shape[1]
-    if _is_ring(spec, Sc):
-        if C >= Sc:           # only the last Sc tokens survive a full wrap
-            k, v, pos0, C = k[:, C - Sc:], v[:, C - Sc:], pos0 + C - Sc, Sc
-        idx = (pos0[:, None] + torch.arange(C, device=k.device)) % Sc
-    else:
-        if C > Sc:
-            raise ValueError(f"a {C}-token chunk does not fit the {Sc}-slot "
-                             f"linear cache")
-        idx = torch.clamp(pos0, max=Sc - C)[:, None] + torch.arange(C, device=k.device)
+    idx = chunk_write_slots(spec, cache["k"].shape[1], pos0, C)
+    n = idx.shape[1]
     rows = torch.arange(B, device=k.device)[:, None]
-    cache["k"][rows, idx] = k.to(cache["k"].dtype)
-    cache["v"][rows, idx] = v.to(cache["v"].dtype)
+    cache["k"][rows, idx] = k[:, C - n:].to(cache["k"].dtype)
+    cache["v"][rows, idx] = v[:, C - n:].to(cache["v"].dtype)
     return cache
 
 
@@ -320,28 +333,49 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
     return layer_fn(x)
 
 
+def _row_load(stats: Optional[dict], cfg: ModelConfig, x: torch.Tensor):
+    """The layer's (B, E) routed load per batch row; zeros for a dense or
+    absent FFN."""
+    if stats is None:
+        E = cfg.moe.num_experts if cfg.moe is not None else 1
+        return torch.zeros((x.shape[0], E), dtype=torch.float32, device=x.device)
+    if "row_load" not in stats:
+        raise ValueError("per-row loads come from the local and dense MoE "
+                         "strategies; the EP path does not report them")
+    return stats["row_load"]
+
+
 def apply_layer_decode(params: dict, x: torch.Tensor, cache: dict,
                        spec: LayerSpec, cfg: ModelConfig, ctx: DistContext,
-                       pos: torch.Tensor):
-    """Single-token decode; x: (B, 1, d), pos: (B,).  Returns (x, cache)."""
+                       pos: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+                       return_load: bool = False):
+    """Single-token decode; x: (B, 1, d), pos: (B,).  Returns (x, cache),
+    or (x, cache, (B, E) routed load per row) with ``return_load``: the
+    JAX package's (E,) load of a one-slot step, for every slot at once.
+    ``mask`` ((B,) bool) writes the cache of its rows only."""
     _require_attn(spec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     h, cache["attn"] = attn_mixer_decode(params["mixer"], h, cache["attn"],
-                                         pos, cfg, spec, ctx)
-    x, _ = _ffn(params, x + h, spec, cfg, ctx)
+                                         pos, cfg, spec, ctx, mask)
+    x, stats = _ffn(params, x + h, spec, cfg, ctx)
+    if return_load:
+        return x, cache, _row_load(stats, cfg, x)
     return x, cache
 
 
 def apply_layer_extend(params: dict, x: torch.Tensor, cache: dict,
                        spec: LayerSpec, cfg: ModelConfig, ctx: DistContext,
-                       pos0: torch.Tensor):
+                       pos0: torch.Tensor, *, return_load: bool = False):
     """C-token cache extension (chunked prefill); x: (B, C, d) at per-row
-    positions pos0..pos0+C-1.  Returns (x, cache)."""
+    positions pos0..pos0+C-1.  Returns (x, cache), or (x, cache, (B, E)
+    routed load per row) with ``return_load``."""
     _require_attn(spec)
     h = apply_norm(params["norm1"], x, cfg.norm)
     h, cache["attn"] = attn_mixer_extend(params["mixer"], h, cache["attn"],
                                          pos0, cfg, spec, ctx)
-    x, _ = _ffn(params, x + h, spec, cfg, ctx)
+    x, stats = _ffn(params, x + h, spec, cfg, ctx)
+    if return_load:
+        return x, cache, _row_load(stats, cfg, x)
     return x, cache
 
 

@@ -196,30 +196,70 @@ def init_cache(params: dict, cfg: ModelConfig, batch_size: int, seq_len: int,
                        for spec in cfg.layer_specs()]}
 
 
+def _load_matrix(loads: list, cfg: ModelConfig, x: torch.Tensor,
+                 per_row: bool) -> torch.Tensor:
+    """The MoE layers' (B, E) row loads as (B, L_moe, E) with ``per_row``,
+    else summed over rows to ``forward``'s (L_moe, E) ``load_per_layer``."""
+    if loads:
+        rows = torch.stack(loads, dim=1)
+    else:
+        E = cfg.moe.num_experts if cfg.moe is not None else 1
+        rows = torch.zeros((x.shape[0], 0, E), dtype=torch.float32, device=x.device)
+    return rows if per_row else rows.sum(0)
+
+
 def decode_step(params: dict, cfg: ModelConfig, ctx: DistContext,
-                cache: dict, tokens: torch.Tensor):
+                cache: dict, tokens: torch.Tensor, *, return_load: bool = False,
+                per_row: bool = False, mask: Optional[torch.Tensor] = None):
     """tokens: (B, 1) -> (logits (B, 1, V), cache).  Each row decodes at its
-    own position ``cache["pos"][b]``."""
+    own position ``cache["pos"][b]``.
+
+    ``return_load`` appends the (L_moe, E) routed-load matrix in
+    ``forward``'s ``load_per_layer`` order, or with ``per_row`` the
+    (B, L_moe, E) one of each row: the telemetry of expert-aware serving.
+    ``mask`` ((B,) bool) makes a masked subset wave: only its rows write
+    their cache row and advance their position; every row still computes,
+    and each row's logits do not depend on the others'.  The default path
+    is the one without the flags."""
     pos = cache["pos"]
     x = params["embed"][tokens]
+    loads = []
     for i, (layer_params, spec) in enumerate(zip(params["layers"],
                                                  cfg.layer_specs())):
-        x, cache["layers"][i] = blocks.apply_layer_decode(
-            layer_params, x, cache["layers"][i], spec, cfg, ctx, pos)
-    pos.add_(1)          # in place: a captured step reads and writes this tensor
-    return unembed(params, cfg, x), cache
+        out = blocks.apply_layer_decode(
+            layer_params, x, cache["layers"][i], spec, cfg, ctx, pos,
+            mask=mask, return_load=return_load)
+        x, cache["layers"][i] = out[0], out[1]
+        if return_load and spec.ffn == "moe":
+            loads.append(out[2])
+    # in place: a captured step reads and writes this tensor
+    pos.add_(1 if mask is None else mask.to(pos.dtype))
+    logits = unembed(params, cfg, x)
+    if return_load:
+        return logits, cache, _load_matrix(loads, cfg, x, per_row)
+    return logits, cache
 
 
 def extend_step(params: dict, cfg: ModelConfig, ctx: DistContext,
-                cache: dict, tokens: torch.Tensor):
+                cache: dict, tokens: torch.Tensor, *, return_load: bool = False):
     """tokens: (B, C) -> (logits (B, C, V), cache).  Multi-token cache
     extension, the chunked-prefill continuation: each chunk attends over
-    the cache so far plus itself, then its K/V joins the cache."""
+    the cache so far plus itself, then its K/V joins the cache.
+    ``return_load`` appends the (L_moe, E) routed-load matrix, as in
+    ``decode_step``."""
     pos0 = cache["pos"]
     x = params["embed"][tokens]
+    loads = []
     for i, (layer_params, spec) in enumerate(zip(params["layers"],
                                                  cfg.layer_specs())):
-        x, cache["layers"][i] = blocks.apply_layer_extend(
-            layer_params, x, cache["layers"][i], spec, cfg, ctx, pos0)
+        out = blocks.apply_layer_extend(
+            layer_params, x, cache["layers"][i], spec, cfg, ctx, pos0,
+            return_load=return_load)
+        x, cache["layers"][i] = out[0], out[1]
+        if return_load and spec.ffn == "moe":
+            loads.append(out[2])
     pos0.add_(tokens.shape[1])
-    return unembed(params, cfg, x), cache
+    logits = unembed(params, cfg, x)
+    if return_load:
+        return logits, cache, _load_matrix(loads, cfg, x, per_row=False)
+    return logits, cache

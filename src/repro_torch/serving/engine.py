@@ -8,9 +8,13 @@ is kept as the reference oracle for cache-layout parity tests.
 Compiled steps are hoisted into a per-(cfg, ctx) cache, as in the JAX
 package: ``get_decode_step``, ``get_extend_step``, ``get_prefill_fn`` and
 ``get_paged_decode_step`` (the paged cache's decode wave,
-``serving/paged_cache.py``) return one ``CompiledStep`` per key
-(``_cached``), and ``step_cache_info`` / ``clear_step_cache`` observe and
-empty it.  ``jax.jit`` compiles a step per
+``serving/paged_cache.py``), and the expert-aware scheduler's
+``get_decode_step_masked`` and ``get_router_probe`` return one
+``CompiledStep`` per key (``_cached``), and ``step_cache_info`` /
+``clear_step_cache`` observe and empty it.  The extend, prefill and paged
+decode steps also return the pass's routed load, the expert-aware
+scheduler's telemetry (a few small reductions of what the router
+computed); the plain decode step does not.  ``jax.jit`` compiles a step per
 argument shape; here a step is a CUDA graph per shape:
 
 * On a CUDA device the first call for each key -- the weights' tensors,
@@ -50,6 +54,7 @@ here records autograd state.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 import weakref
@@ -58,10 +63,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import memory_model as mm
+from repro_torch.core import placement as plc
 from repro_torch.core.chunking import chunk_spans
 from repro_torch.core.moe import DistContext
+from repro_torch.core.router import route
 from repro_torch.kernels import _cuda
 from repro_torch.models import blocks, transformer
+from repro_torch.serving import residency
 
 
 def init_serve_cache(params: dict, cfg: ModelConfig, batch: int, seq_len: int,
@@ -69,6 +78,33 @@ def init_serve_cache(params: dict, cfg: ModelConfig, batch: int, seq_len: int,
     """An empty decode cache for ``batch`` rows on the weights' device."""
     return transformer.init_cache(params, cfg, batch, seq_len, dtype,
                                   params["embed"].device)
+
+
+def build_placements(cfg: ModelConfig, ctx: DistContext, num_peers: int, *,
+                     loads=None, replicas: int = 0):
+    """Static expert placement chosen at engine build.
+
+    Serving never replans: the placement is resolved here from an offline
+    load profile (``loads``: an (L_moe, E) matrix, e.g. a training run's
+    telemetry EMA; None means identity) and set in the ctx the steps run
+    under.  Returns ``(ctx with per-layer placements, replica_weight_bytes)``;
+    the second is what ``ServeConfig.replica_weight_bytes`` should carry so
+    admission prices the replica slots.  The local serving path does not
+    move experts: the placement is priced and names the always-resident
+    experts of the residency tier (``residency.always_resident_sets``)."""
+    n_moe = transformer.num_moe_layers(cfg)
+    if cfg.moe is None or n_moe == 0 or num_peers <= 1 \
+            or cfg.moe.num_experts % num_peers:
+        return ctx, 0.0
+    placements = plc.choose_placements(
+        loads, n_moe, num_peers, num_experts=cfg.moe.num_experts,
+        replicas=replicas, hysteresis=0.0)
+    extra_slots = max(p.replica_slots for p in placements)
+    replica_bytes = mm.replica_weight_bytes(
+        cfg, extra_slots, mm.Parallelism(e=num_peers))
+    if all(p.is_identity for p in placements):
+        return ctx, 0.0
+    return dataclasses.replace(ctx, placements=placements), replica_bytes
 
 
 def make_serve_step(cfg: ModelConfig, ctx: DistContext):
@@ -424,11 +460,12 @@ def get_decode_step(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
 
 def get_extend_step(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
     """The compiled chunk step(params, cache, tokens (B,C)) -> (logits
-    (B,C,V), cache) -- chunked prefill continuation, the cache updated in
-    place."""
+    (B,C,V), cache, load (L_moe, E)) -- chunked prefill continuation, the
+    cache updated in place; ``load`` is the chunk's routed load."""
     def build():
         def fn(params, cache, tokens):
-            return transformer.extend_step(params, cfg, ctx, cache, tokens)
+            return transformer.extend_step(params, cfg, ctx, cache, tokens,
+                                           return_load=True)
         return CompiledStep(fn, ctx.device, donate_cache_arg=1)
     return _cached(("extend", cfg, ctx), build)
 
@@ -436,7 +473,9 @@ def get_extend_step(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
 def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                           layer_groups: tuple, page: int) -> CompiledStep:
     """The compiled paged decode wave step(params, pools, gather_tables,
-    write_pages, pos (B,), tokens (B,1)) -> (logits (B,1,V), pools).
+    write_pages, pos (B,), tokens (B,1)) -> (logits (B,1,V), pools, load
+    (B, L_moe, E)): ``load`` is each slot's routed load, for the
+    expert-aware scheduler.
 
     ``pools`` holds one {"k", "v"} pair of (pages, page, KH, hd) page pools
     per layer; ``layer_groups[i]`` is layer i's page group
@@ -458,8 +497,8 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                           for n in ("k", "v")}}
                       for pool, g, j in zip(pools, layer_groups, gidx)]
             cache = {"pos": pos.clone(), "layers": layers}
-            logits, cache = transformer.decode_step(params, cfg, ctx, cache,
-                                                    tokens)
+            logits, cache, load = transformer.decode_step(
+                params, cfg, ctx, cache, tokens, return_load=True, per_row=True)
             # the row decode_step wrote: Group.slot, clamped as its linear
             # write is (empty slots sit at position 0)
             rows = [pos % g.length if g.ring else pos.clamp(max=g.length - 1)
@@ -469,7 +508,7 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                 for n in ("k", "v"):
                     pool[n].index_put_((write_pages[j], rows[j] % page),
                                        layer["attn"][n][b, rows[j]])
-            return logits, pools
+            return logits, pools, load
         return CompiledStep(fn, ctx.device, donate_cache_arg=1)
     return _cached(("paged_decode", cfg, ctx, tuple(layer_groups), page), build)
 
@@ -477,15 +516,97 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
 def get_prefill_fn(cfg: ModelConfig, ctx: DistContext, cache_len: int,
                    dtype=torch.float32) -> CompiledStep:
     """The compiled single-pass prefill(params, batch) -> (logits (B,1,V),
-    cache)."""
+    cache, load (L_moe, E)), ``load`` being ``forward``'s
+    ``load_per_layer``."""
     def build():
         def fn(params, batch):
-            logits, _stats, cache = transformer.forward(
+            logits, stats, cache = transformer.forward(
                 params, cfg, ctx, batch, return_cache=True,
                 cache_len=cache_len, cache_dtype=dtype)
-            return logits[:, -1:], cache
+            return logits[:, -1:], cache, stats["load_per_layer"]
         return CompiledStep(fn, ctx.device)
     return _cached(("prefill", cfg, ctx, cache_len, dtype), build)
+
+
+# ---------------------------------------------------------------------------
+# expert-aware steps
+#
+# The scheduler's residency demand loop may throw a run away and re-run it
+# after restoring the experts it missed.  The reference keeps such steps
+# non-donating; here every step writes its cache in place, so the caller
+# rewinds: the masked decode writes members' rows only and a re-run rewrites
+# the same rows from the same inputs once ``pos`` is put back, and an extend
+# re-run puts back the rows the chunk overwrote (``snapshot_chunk``).
+# ---------------------------------------------------------------------------
+
+def get_decode_step_masked(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
+    """The compiled subset wave over the slot map: step(params, cache,
+    tokens (S,1), mask (S,) bool) -> (logits (S,1,V), cache, load
+    (S, L_moe, E)).
+
+    Every slot computes (each slot's logits depend on its own row only, so
+    members' logits are bitwise those of the unmasked wave); only members
+    write their cache row and advance their position, so non-members' cache
+    rows and positions are untouched.  Non-member load rows are zero."""
+    def build():
+        def fn(params, cache, tokens, mask):
+            logits, cache, load = transformer.decode_step(
+                params, cfg, ctx, cache, tokens, return_load=True,
+                per_row=True, mask=mask)
+            return logits, cache, load * mask.to(load.dtype)[:, None, None]
+        return CompiledStep(fn, ctx.device, donate_cache_arg=1)
+    return _cached(("decode_masked", cfg, ctx), build)
+
+
+def get_router_probe(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
+    """The compiled router-only probe: probe(params, tokens (N,)) ->
+    (N, L_moe, E) activation counts.
+
+    Every MoE layer's router runs on the token embeddings (no attention, no
+    FFN): a cheap guess at where those tokens will route, the prefetch hint
+    for a request with no telemetry yet.  Approximate by construction (real
+    routing sees the residual stream); never a correctness input, since
+    demand restores cover its misses."""
+    refs = residency.moe_layer_refs(cfg)
+
+    def build():
+        def fn(params, tokens):
+            x = params["embed"][tokens]
+            E = cfg.moe.num_experts
+            experts = torch.arange(E, device=x.device)
+            per_layer = []
+            for i in refs:
+                r = route(params["layers"][i]["ffn"]["router"], x, cfg.moe)
+                per_layer.append((r.expert_idx[..., None] == experts)
+                                 .float().sum(-2))                 # (N, E)
+            return torch.stack(per_layer, dim=1)                    # (N, L, E)
+        return CompiledStep(fn, ctx.device)
+    return _cached(("router_probe", cfg, ctx), build)
+
+
+def snapshot_chunk(cache: dict, cfg: ModelConfig, C: int):
+    """The cache rows a C-token extend of ``cache`` overwrites, and its
+    positions: what ``rewind_chunk`` puts back before a re-run.  A chunk
+    that wraps a ring overwrites rows its earlier queries still see, so an
+    extend is not re-run-safe without them."""
+    pos0 = cache["pos"]
+    rows = torch.arange(pos0.shape[0], device=pos0.device)[:, None]
+    saved = []
+    for spec, layer in zip(cfg.layer_specs(), cache["layers"]):
+        attn = layer["attn"]
+        idx = blocks.chunk_write_slots(spec, attn["k"].shape[1], pos0, C)
+        saved.append((idx, {n: attn[n][rows, idx] for n in ("k", "v")}))
+    return pos0.clone(), saved
+
+
+def rewind_chunk(cache: dict, snapshot) -> None:
+    """Put back what ``snapshot_chunk`` saved, in place."""
+    pos0, saved = snapshot
+    rows = torch.arange(pos0.shape[0], device=pos0.device)[:, None]
+    for layer, (idx, kv) in zip(cache["layers"], saved):
+        for n, t in kv.items():
+            layer["attn"][n][rows, idx] = t
+    cache["pos"].copy_(pos0)
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +617,8 @@ def prefill(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict,
             cache_len: int, dtype=torch.float32):
     """Single-pass batched prefill.  Returns (next_token_logits (B, 1, V),
     cache)."""
-    return get_prefill_fn(cfg, ctx, cache_len, dtype)(params, batch)
+    logits, cache, _ = get_prefill_fn(cfg, ctx, cache_len, dtype)(params, batch)
+    return logits, cache
 
 
 def prefill_replay(params: dict, cfg: ModelConfig, ctx: DistContext,
@@ -521,7 +643,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, ctx: DistContext, cache,
     (next_token_logits (B, 1, V), cache)."""
     if cache is None:
         return prefill(params, cfg, ctx, {"tokens": seg}, cache_len, dtype)
-    full, cache = get_extend_step(cfg, ctx)(params, cache, seg)
+    full, cache, _ = get_extend_step(cfg, ctx)(params, cache, seg)
     return full[:, -1:], cache
 
 

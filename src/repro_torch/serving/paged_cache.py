@@ -194,11 +194,24 @@ class PagedCachePool:
         slot s (None = empty slot: reads the zero page, writes the scratch
         page); ``toks`` (n_slots, 1).  Returns the (n_slots, 1, V) logits on
         the device."""
+        return self.decode_wave_loads(params, slot_rps, pos, toks)[0]
+
+    def decode_wave_loads(self, params: dict, slot_rps: list, pos: np.ndarray,
+                          toks: np.ndarray):
+        """``decode_wave`` that also reports each slot's routed load: returns
+        (logits (n_slots, 1, V), load (n_slots, L_moe, E)) on the device.
+        Membership is ``slot_rps[s] is not None``: a non-member reads the
+        zero page and writes the scratch page, so a wave never touches a
+        non-member's pages (its load row is garbage; the caller masks it).
+        Nothing on the host moves: the caller advances its members'
+        positions once the residency demand loop has a clean run.  A re-run
+        gathers the row the first run wrote at ``pos`` and rewrites it from
+        the same inputs before any query reads it, so it is re-run-safe."""
         step = self._decode.eager if self.eager else self._decode
-        logits, _ = step(params, self.pools, self._tables(slot_rps),
-                         self._write_pages(slot_rps, pos),
-                         self._ids(pos), self._ids(toks))
-        return logits
+        logits, _, load = step(params, self.pools, self._tables(slot_rps),
+                               self._write_pages(slot_rps, pos),
+                               self._ids(pos), self._ids(toks))
+        return logits, load
 
     def install(self, rp: RequestPages, dense: dict, filled: int,
                 shared_len: int = 0) -> None:

@@ -24,8 +24,10 @@ The decode wave gathers per-slot dense caches from the page tables and runs
 the unchanged ``transformer.decode_step`` (one CUDA graph per pool on the
 card), so paged decode gives the slot map's tokens.  Prefill chunks run on
 the extend step's static B=1 cache, as in the parent, and ``install``
-scatters it into pages.  The JAX package's expert-aware waves are not
-ported.
+scatters it into pages.  Expert-aware waves and the residency tier are
+the parent's, with the paged wave (``PagedCachePool.decode_wave_loads``):
+membership rides the page tables, a non-member slot reading the zero page
+and writing the scratch page.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from repro_torch.serving.paging import (PagesExhausted, PrefixTrie,
                                         prefix_align)
 from repro_torch.serving.scheduler import (ACTIVE, PREFILL, WAITING,
                                            ContinuousBatchingScheduler,
-                                           Request, ServeConfig)
+                                           Request, ServeConfig, _host)
 
 
 class PagedScheduler(ContinuousBatchingScheduler):
@@ -103,7 +105,9 @@ class PagedScheduler(ContinuousBatchingScheduler):
     def _paged_kw(self) -> dict:
         s = self.scfg
         return dict(prefill_tokens=s.prefill_chunk, dtype_bytes=s.dtype_bytes,
-                    weight_bytes=s.weight_bytes)
+                    weight_bytes=s.weight_bytes,
+                    replica_weight_bytes=s.replica_weight_bytes,
+                    **self._resident_kw())
 
     def modeled_bytes(self, requests: Optional[int] = None) -> float:
         occ = self.occupancy() if requests is None else requests
@@ -322,6 +326,9 @@ class PagedScheduler(ContinuousBatchingScheduler):
         super()._requeue_active()
 
     def _decode_wave(self, now: float) -> None:
+        if self._expert_aware:
+            self._decode_wave_expert(now)
+            return
         n = self.scfg.max_slots
         toks = np.zeros((n, 1), np.int64)
         pos = np.zeros((n,), np.int64)
@@ -341,19 +348,63 @@ class PagedScheduler(ContinuousBatchingScheduler):
             logits = self.pool.decode_wave(self.params, slot_rps, pos, toks)
             logits = logits.cpu().numpy()      # (slots, 1, V): the host fetch
         except Exception as exc:               # is where a real OOM surfaces
-            if not (is_oom_error(exc) or isinstance(exc, PagesExhausted)):
+            if not self._wave_fault_ok(exc):
                 raise
-            self.faults += 1
-            self._requeue_active()
-            if self.ctx.device.type != "cpu":
-                # the pools may be torn mid-wave: zero them in place and drop
-                # the trie's now-dangling pins (prefixes recompute)
-                self._rebuild_pools()
+            self._wave_recover(now)
             return
         self.decode_waves += 1
         for slot, req in list(self.active.items()):
             req.pos += 1
             self._append_token(req, logits[slot, -1], now)
+
+    # -- expert-aware wave hooks ----------------------------------------------
+
+    def _wave_fault_ok(self, exc: Exception) -> bool:
+        return is_oom_error(exc) or isinstance(exc, PagesExhausted)
+
+    def _wave_recover(self, now: float) -> None:
+        self.faults += 1
+        self._requeue_active()
+        if self.ctx.device.type != "cpu":
+            # the pools may be torn mid-wave: zero them in place and drop
+            # the trie's now-dangling pins (prefixes recompute)
+            self._rebuild_pools()
+
+    def _advance_member(self, req: Request) -> None:
+        req.pos += 1
+
+    def _run_wave(self, members: list, mask: np.ndarray):
+        """The paged member wave to the residency fixpoint.  Membership rides
+        the page tables: a non-member slot gets ``rp=None`` (zero-page reads,
+        scratch-page writes), so no run touches a non-member's pages, and a
+        re-run rewrites the members' rows from the same inputs."""
+        n = self.scfg.max_slots
+        toks = np.zeros((n, 1), np.int64)
+        pos = np.zeros((n,), np.int64)
+        for slot in members:
+            req = self.active[slot]
+            toks[slot, 0] = req.next_token
+            pos[slot] = req.pos
+            # CoW before the wave, as in the FIFO path; ensure_writable is
+            # idempotent, so re-runs see the same owned block
+            self.pool.prepare_decode_write(req.rp, req.pos)
+        if self.injector is not None:
+            self.injector.maybe_fail_step(self.steps, "decode_wave")
+        slot_rps = [self.active[i].rp if mask[i] and i in self.active else None
+                    for i in range(n)]
+        out = {}
+
+        def once():
+            logits, load = self.pool.decode_wave_loads(self.params, slot_rps,
+                                                       pos, toks)
+            out["logits"], load = _host(logits, load)
+            # non-member slots decoded token 0 from the zero page: zero
+            # their load rows so unions and telemetry see members only
+            out["load"] = load * mask[:, None, None]
+            return out["load"].sum(0) > 0
+
+        self._demand_fixpoint(once)
+        return out["logits"], out["load"]
 
     def _rebuild_pools(self) -> None:
         if self.trie is not None:

@@ -978,7 +978,8 @@ def test_eager_steps_make_no_host_sync(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, cache = engine.get_prefill_fn(cfg, ctx, 80).eager(params, {"tokens": seg})
+        _, cache, _ = engine.get_prefill_fn(cfg, ctx, 80).eager(params,
+                                                                {"tokens": seg})
         engine.get_extend_step(cfg, ctx).eager(params, cache, seg)
         engine.get_decode_step(cfg, ctx).eager(params, cache, tok)
     finally:
@@ -1158,6 +1159,122 @@ def test_paged_wave_makes_no_host_sync(cuda):
         step.eager(params, *args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    engine.clear_step_cache()
+
+
+# -- expert-aware serving: masked waves and the residency tier ---------------
+
+@pytest.mark.cuda
+def test_masked_decode_graph_equals_eager(cuda):
+    """The masked subset wave's graph against its eager function over waves
+    with changing masks: logits, cache and per-slot loads bit for bit, one
+    capture, and the eager function makes no host sync."""
+    cfg, params = _reduced(cuda)
+    ctx = DistContext(device=cuda)
+    engine.clear_step_cache()
+    step = engine.get_decode_step_masked(cfg, ctx)
+    a = engine.init_serve_cache(params, cfg, 3, 80)
+    b = engine.init_serve_cache(params, cfg, 3, 80)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    masks = ([1, 1, 1], [1, 0, 1], [0, 1, 0], [1, 1, 0], [1, 1, 1])
+    for m in masks:
+        tok = torch.randint(0, cfg.vocab_size, (3, 1), generator=gen).to(cuda)
+        mask = torch.tensor(m, dtype=torch.bool, device=cuda)
+        got, a, load_g = step(params, a, tok, mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want, b, load_e = step.eager(params, b, tok, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want) and torch.equal(load_g, load_e)
+        assert all(torch.equal(x, y) for x, y in zip(engine.leaves(a), engine.leaves(b)))
+    assert a["pos"].tolist() == [4, 4, 3]
+    assert step.captures == 1
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_paged_decode_wave_loads_graph_equals_eager(cuda):
+    """The paged loads wave's graph against its eager function: logits,
+    loads and pools bit for bit, one capture."""
+    from repro_torch.serving.paged_cache import PagedCachePool
+    cfg, params = _reduced(cuda)
+    ctx = DistContext(device=cuda)
+    engine.clear_step_cache()
+    toks = torch.arange(72, device=cuda)[None]
+    logits, cache = engine.prefill_chunked(params, cfg, ctx, toks, 96, 8)
+    pools, rps = [], []
+    for eager in (False, True):
+        pool = PagedCachePool(params, cfg, ctx, 2, 96, 8, eager=eager)
+        rp = pool.ops.new_request()
+        pool.install(rp, cache, 72)
+        pools.append(pool)
+        rps.append(rp)
+    tok = int(logits[0, -1].argmax())
+    for i in range(8):
+        outs = []
+        for pool, rp in zip(pools, rps):
+            pool.prepare_decode_write(rp, 72 + i)
+            outs.append(pool.decode_wave_loads(params, [rp, None],
+                                               np.asarray([72 + i, 0]),
+                                               np.asarray([[tok], [0]])))
+        (lg_g, ld_g), (lg_e, ld_e) = outs
+        assert torch.equal(lg_g, lg_e) and torch.equal(ld_g, ld_e), f"wave {i}"
+        assert float(ld_g[0].sum()) == cfg.moe.top_k * transformer.num_moe_layers(cfg)
+        tok = int(lg_e[0, -1].argmax())
+    for x, y in zip(engine.leaves(pools[0].pools), engine.leaves(pools[1].pools)):
+        assert torch.equal(x[2:], y[2:])
+    assert pools[0]._decode.captures == 1
+    engine.clear_step_cache()
+
+
+def _expert_serve(params, cfg, cuda, **kw):
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                    max_new_tokens=g) for i, (S, g) in enumerate(SERVE_TRACE)]
+    sched = ContinuousBatchingScheduler(
+        params, cfg, DistContext(device=cuda),
+        ServeConfig(max_slots=2, cache_len=80, prefill_chunk=16, **kw))
+    m = sched.run(reqs)
+    return [r.out for r in reqs], m, sched
+
+
+@pytest.mark.cuda
+def test_residency_keeps_weight_pointers_and_warm_graphs(cuda):
+    """The tier writes the weights in place: every weight keeps its
+    data_ptr through offloads and restores, a second residency run captures
+    no graph (restores do not re-key the steps), a restore is bit-equal to
+    the host mirror, the mirror is pinned, streams equal the all-resident
+    run's, and ``close`` gives back the original bits."""
+    cfg, params = _reduced(cuda)
+    engine.clear_step_cache()
+    flat0 = [t.clone() for t in engine.leaves(params)]
+    ptrs = [t.data_ptr() for t in engine.leaves(params)]
+    base, _, _ = _expert_serve(params, cfg, cuda)
+    kw = dict(wave_size=1, expert_batching=True, resident_experts=1)
+    first, m, sched = _expert_serve(params, cfg, cuda, **kw)
+    assert first == base and m["residency"]["restores"] > 0
+    assert [t.data_ptr() for t in engine.leaves(params)] == ptrs
+    res = sched.residency
+    assert res.host[0]["w1"].is_pinned()
+    j = 0
+    cold = next(e for e in range(res.num_experts) if e not in res.resident[j])
+    w1 = params["layers"][res.refs[j]]["ffn"]["w1"]
+    assert not w1[cold].any()
+    res.ensure(params, [(j, cold)])
+    torch.cuda.synchronize()
+    assert torch.equal(w1[cold].cpu(), res.host[j]["w1"][cold])
+    sched.close()
+    del sched, res
+    gc.collect()
+    captures = engine.step_cache_info()["captures"]
+    again, m2, sched = _expert_serve(params, cfg, cuda, **kw)
+    assert again == base and m2["demand_reruns"] == m["demand_reruns"]
+    assert engine.step_cache_info()["captures"] == captures
+    sched.close()
+    assert all(torch.equal(a, b) for a, b in zip(flat0, engine.leaves(params)))
+    assert [t.data_ptr() for t in engine.leaves(params)] == ptrs
     engine.clear_step_cache()
 
 

@@ -137,7 +137,8 @@ def test_steps_advance_the_cache_positions_in_place(models):
     toks = torch.tensor([[3], [5]])
     _, cache = teng.get_decode_step(tcfg, TCTX)(tp, cache, toks)
     assert cache["pos"] is pos and pos.tolist() == [1, 1]
-    _, cache = teng.get_extend_step(tcfg, TCTX)(tp, cache, torch.tensor([[1, 2, 3]] * 2))
+    _, cache, _ = teng.get_extend_step(tcfg, TCTX)(tp, cache,
+                                                   torch.tensor([[1, 2, 3]] * 2))
     assert cache["pos"] is pos and pos.tolist() == [4, 4]
     # the scheduler's slot pool keeps its tensors across waves, as a
     # captured decode graph needs

@@ -1,6 +1,6 @@
 """Properties of the port that need no JAX: it imports nothing of JAX or of
 the JAX package, its entry points refuse to run without a card unless the
-CPU is asked for, and the paths it leaves out raise."""
+CPU is asked for, and every serving option constructs."""
 
 import importlib
 import pkgutil
@@ -92,9 +92,12 @@ def test_layers_cut_keeps_every_width():
                                     dict(expert_batching=True), dict(wave_size=2),
                                     dict(resident_experts=2),
                                     dict(probe_router=True)])
-def test_unported_serving_paths_raise(option):
-    """The expert-aware options are not ported and raise; the paging options
-    are (serving/paged_scheduler.py) and construct."""
+def test_every_serving_option_constructs(option):
+    """Every serving option of the JAX package constructs a scheduler in the
+    port.  The paging options construct a paged scheduler
+    (serving/paged_scheduler.py); the expert-aware ones a scheduler with
+    its per-request telemetry and, with ``resident_experts``, its residency
+    tier (serving/residency.py).  ``probe_router`` alone engages nothing."""
     cfg = get_config("mixtral-8x7b").reduced()
     params = transformer.init_params(cfg, device=CPU)
     ctx = DistContext(device=CPU)
@@ -102,8 +105,16 @@ def test_unported_serving_paths_raise(option):
         scfg = ServeConfig(**{"page_size": 8, **option})
         assert PagedScheduler(params, cfg, ctx, scfg).pool.page == scfg.page_size
         return
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingScheduler(params, cfg, ctx, ServeConfig(**option))
+    sched = ContinuousBatchingScheduler(params, cfg, ctx, ServeConfig(**option))
+    engaged = not option.keys() <= {"probe_router"}
+    assert (sched.telemetry is not None) == engaged
+    assert sched.telemetry is None or sched.telemetry.num_experts == cfg.moe.num_experts
+    if "resident_experts" in option:
+        assert sched.residency.resident_counts().tolist() == [2] * cfg.num_layers
+        sched.close()
+        assert sched.residency.host is None
+    else:
+        assert sched.residency is None
 
 
 def test_scheduler_sheds_and_refuses_like_the_reference():
