@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               4608 rows from 2 source blocks with -1 gaps, 4 local
               experts, and at a placed EP rank's: R 4736, 5 weight slots
               (a replica slot per rank); attention: flash attention at
-              Mixtral-8x7B's heads), in fp32 and bf16, and timed beside the
+              Mixtral-8x7B's heads), in fp32 and bf16, and the grouped
+              kernels also at Jamba-1.5-Large's MoE shapes (16 experts,
+              d_model 8192, d_ff 24576) in bf16, each timed beside the
               plain version, a one-call PyTorch yardstick where there is
               one, and the card's bound.  Times are device times (CUDA
               events around calls queued while a spin kernel holds the card:
@@ -56,7 +58,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               high-watermark against the slot map's modeled cache bytes,
               max_memory_allocated, spill and restore ms, and the warm
               4-slot wave's device ms paged against the slot map's.
-7. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
+7. serve (expert-aware) -- the serve trace in five slot-map modes and two
+              paged ones (waves of 2, expert batching, 2 resident experts,
+              the router probe): streams equal the serve phase's, sampled
+              logits rows bit-equal to the default run's, no graph captured
+              across restores, admission at a budget between two
+              all-resident peaks, a restore's time and the weights handed
+              back bit for bit.
+8. serve (hybrid) -- full-width Jamba-1.5-Large (the first 4 layers of its
+              period: mamba/dense, mamba/MoE, mamba/dense, attention/MoE;
+              45.96 GB of bf16 weights) through the launcher, then eager and
+              compiled in turns (streams equal; ms a pass, tok/s, p50/p99,
+              device idle share, peak against the modeled bytes); the same
+              weights from 16-token pages (the serve trace's logits rows
+              bit-equal to the slot map's, the shared-stem trace with the
+              trie, a tight budget with preemption; state blocks' bytes
+              beside the K/V pages'); waves of 2, every non-member's mamba
+              state read on the host before and after its wave; then
+              Mamba2-130m whole, eager and compiled in turns.
+9. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
               cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
               of 2 x 2048 tokens on the EP strategy at one peer with the
               fused expert leg, MACT choosing the schedule; every loss and
@@ -65,12 +85,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               the peak of one forward + backward against MACT's modeled
               activation bytes at MACT's schedule, at (2, 1) and unchunked:
               two sequential chunks must not raise it above one chunk's.
-8. train (ragged leg) -- the same model and steps through Trainer, built as
+10. train (ragged leg) -- the same model and steps through Trainer, built as
               launch/train.py builds it, on the three-launch ragged leg
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
               fused_moe must not launch.  The same profile and peaks (Eq. 2
               with the dispatch buffer's term).
-9. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
+11. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
               card over gloo (started as torchrun starts them): the same
               model, batch and steps, each rank holding 4 of the 8 experts
               of each layer and one of the two sequences, on the fused leg,
@@ -80,7 +100,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches; the phase fails on a non-finite loss, ranks that
               disagree, a kernel of a leg that did not launch on a rank,
               (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
-10. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
+12. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
               batch and fused leg, 5 steps, layer 0's router zeroed after
               init (step 1 sends every token to experts 0 and 1, which
               identity places on rank 0): launch/train.py with global
@@ -102,7 +122,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               above (1, 1) on a placed run, or a placed run's first step
               (identity at cold start) that differs from the global run's
               in one bit.
-11. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
+13. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
               leg: (a) launch/train.py --inject "oom@2,burst@2x64"
               --no-pipeline for 4 steps of 2 x 2048 tokens must escalate
               once, at step 2, to a deeper chunk count, and the burst must
@@ -120,7 +140,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               same kill-and-resume on 2 card ranks (gloo, reduced config),
               an injected OOM walked in lockstep, and one rank's torn
               payload invalidating the step for both.
-12. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
+14. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
               steps on each leg must give the same schedules and losses, at
@@ -128,7 +148,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               4 on the CPU), where 2 fused-leg steps with adaptive MACT and
               expert placement (a replica slot per rank, layer 0's router
               zeroed) must also give the same schedule vectors and
-              placements.
+              placements.  The reduced Jamba and Mamba2 in fp32 on the card
+              against the CPU (prefill logits, greedy streams), and the
+              reduced Jamba with 2 of 4 experts resident and the prefetch
+              off, so decode waves re-run: the default run's streams.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -157,6 +180,8 @@ FP32_FLOPS = 67e12
 DECODE_M, PREFILL_MS = 4, (16, 32)
 E, D_MODEL, D_FF = 8, 4096, 14336
 TOL_F32 = 1e-4      # fp32 sums in another order, K up to 14336
+# Jamba-1.5-Large's MoE layers: the widest the repo's configs have
+JAMBA_E, JAMBA_D_MODEL, JAMBA_D_FF = 16, 8192, 24576
 TOL_BF16 = 1e-2     # one bf16 ulp is at most 2**-7 relative
 
 TRAIN_ARGS = ["--arch", "mixtral-8x7b", "--layers", "2", "--ep", "--fused",
@@ -430,7 +455,60 @@ def kernels_phase() -> dict:
         }
     del w1, w3, w2, wb, w32
     torch.cuda.empty_cache()
+    jamba_kernels(entries, randn)
     return entries
+
+
+def jamba_kernels(entries: dict, randn) -> None:
+    """Both grouped kernels at Jamba-1.5-Large's MoE shapes (16 experts,
+    d_model 8192, d_ff 24576) in bf16, the serve (hybrid) path's type:
+    against the plain version, relaunched, timed beside the plain version,
+    torch.bmm for grouped_matmul and the bound.  The fp32 forms run at the
+    reduced size in the check phase; at this width their weights alone
+    would take 38.7 GB."""
+    import torch
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+
+    E_, K_, N_ = JAMBA_E, JAMBA_D_MODEL, JAMBA_D_FF
+    w = {"w1": randn((E_, K_, N_), K_ ** -0.5).bfloat16(),
+         "w3": randn((E_, K_, N_), K_ ** -0.5).bfloat16(),
+         "w2": randn((E_, N_, K_), N_ ** -0.5).bfloat16()}
+    torch.cuda.empty_cache()                      # the fp32 draws
+    specs = {"grouped_swiglu": (gm.grouped_swiglu, ref.grouped_swiglu_ref,
+                                ("w1", "w3"), K_, N_, None),
+             "grouped_matmul": (gm.grouped_matmul, ref.grouped_matmul_ref,
+                                ("w2",), N_, K_, torch.bmm)}
+    for name, (fn, plain, names, K, N, library) in specs.items():
+        ws = [w[k] for k in names]
+        for M in (DECODE_M, PREFILL_MS[0]):
+            xb = randn((E_, M, K)).bfloat16()
+            got, want = fn(xb, *ws), plain(xb, *ws)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            label = f"E={E_} M={M} K={K} N={N}"
+            if not _close(got, want, TOL_BF16):
+                raise SystemExit(f"{name} disagrees with its plain version at Jamba's "
+                                 f"{label} (bf16 tol {TOL_BF16}): err {err:.3e}")
+            del want
+            repeat_check(name, f"Jamba {label}", lambda: fn(xb, *ws), got)
+            ms, host_ms, _ = device_ms(lambda: fn(xb, *ws), kernel_call=True)
+            plain_ms, _, plain_note = device_ms(lambda: plain(xb, *ws), iters=2)
+            torch.cuda.empty_cache()
+            lib_ms, _, lib_note = (device_ms(lambda: library(xb, *ws))
+                                   if library is not None else (None, None, ""))
+            bms, by = bound_ms(E_, M, K, N, len(ws))
+            entries[name]["shapes"].append({
+                "model": "jamba-1.5-large-398b", "M": M, "K": K, "N": N,
+                "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_ms})
+            print(f"{name} Jamba {label} bf16: ok err {err:.3e} | device ms: kernel "
+                  f"{ms:.4f}, plain {plain_ms:.4f}{plain_note}, library "
+                  f"{_fmt(lib_ms)}{lib_note} | host ms per call {host_ms:.4f} | bound "
+                  f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of bound", flush=True)
+    del w, ws
+    torch.cuda.empty_cache()
 
 
 def _routed_chunk(gen, dev):
@@ -2448,6 +2526,10 @@ def _paged_run(argv, params, trace=None, record=None, spill=None, restore=None,
     run["cache_bytes"] = sum(t.nbytes for t in serve_engine.leaves(
         sched.pool.pools if hasattr(sched, "pool") else sched.cache))
     if hasattr(sched, "pool"):
+        pools = sched.pool.pools          # a mamba layer's: {"ssm", "conv"}
+        run["state_pool_bytes"] = sum(t.nbytes for p in pools if "ssm" in p
+                                      for t in p.values())
+        run["state_block_bytes"] = sched.pool.layout.state_bytes(sched.scfg.dtype_bytes)
         sched.pool.alloc.audit()
         if sched.trie is not None:
             sched.trie.clear()
@@ -2492,7 +2574,7 @@ def _wave_ms(params, cfg, ctx, cache_len: int, filled: int) -> tuple:
         rps.append(rp)
     tok = pool._ids([[1]] * 4)
     args = (pool._tables(rps), pool._write_pages(rps, [filled] * 4),
-            pool._ids([filled] * 4), tok)
+            pool._state_blocks(rps), pool._ids([filled] * 4), tok)
     paged, _, note_p = device_ms(lambda: pool._decode(params, pool.pools, *args))
     step = engine.get_decode_step(cfg, ctx)
     holder = _Holder()
@@ -2911,6 +2993,261 @@ def expert_phase(served: dict, card: str) -> dict:
     return launches
 
 
+# the serve (hybrid) phase: the serve trace on full-width Jamba-1.5-Large cut
+# to its period's first 4 layers (mamba/dense, mamba/MoE, mamba/dense,
+# attention/MoE) and on Mamba2-130m whole
+HYBRID_ARGS = (["--arch", "jamba-1.5-large-398b", "--layers", "4"]
+               + SERVE_ARGS[SERVE_ARGS.index("--requests"):])
+MAMBA_ARGS = ["--arch", "mamba2-130m"] + SERVE_ARGS[SERVE_ARGS.index("--requests"):]
+
+
+def _state_leaves(sched) -> list:
+    """The slot pool's mamba state tensors."""
+    return [t for layer in sched.cache["layers"] if "ssm" in layer
+            for t in layer["ssm"].values()]
+
+
+def _idle_share(args, params) -> tuple:
+    """One run under torch.profiler: (run, device busy ms, idle share %)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    r = _serve_run(args, params, profiler=prof)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return r, busy, 100 - 100 * busy / (1e3 * r["metrics"]["elapsed_s"])
+
+
+def _turns(argv, params, card: str, label: str, want=None) -> list:
+    """The trace eager and compiled in turns on ``params``, then one
+    profiled run each way: streams equal across runs (and ``want``);
+    prints each run's numbers.  Returns the runs."""
+    from repro_torch.launch import serve
+    modes = {e: serve.parse_args(argv + (["--eager"] if e else [])) for e in (False, True)}
+    runs = [_serve_run(modes[e], params) for e in (True, False, True, False)]
+    idle = {}
+    for e in (False, True):
+        r, busy, idle[e] = _idle_share(modes[e], params)
+        runs.append(r)
+    want = runs[0]["streams"] if want is None else want
+    for r in runs:
+        if r["streams"] != want:
+            raise SystemExit(f"{label}: the {'eager' if r['eager'] else 'compiled'} run's "
+                             f"streams differ from the first run's")
+        if not r["eager"] and r["captures"]:
+            raise SystemExit(f"{label}: a warm compiled run captured a graph")
+    for r in runs:
+        m = r["metrics"]
+        print(f"{card}: {label} warm {'eager' if r['eager'] else 'compiled'} run: "
+              f"{r['ms_per_pass']:.2f} ms a pass ({r['passes']} passes), "
+              f"{m['tok_per_s']:.1f} tok/s, p50 {m['latency_p50_s']:.3f} s, p99 "
+              f"{m['latency_p99_s']:.3f} s, device idle {idle[r['eager']]:.1f}% "
+              f"(profiled run), max_memory_allocated {r['peak'] / 1e9:.3f} GB against "
+              f"the modeled peak {m['modeled_peak_bytes'] / 1e9:.3f} GB", flush=True)
+    print(f"{card}: {label}: streams equal over {len(runs)} runs, eager and "
+          f"compiled in turns; warm compiled runs captured no graph", flush=True)
+    return runs
+
+
+def _wave_checked(sched, checks: list) -> None:
+    """Wrap the scheduler's member wave: every non-member slot's mamba state
+    and conv tail must come back bit for bit (read on the host)."""
+    import torch
+    run_wave = sched._run_wave
+
+    def checked(members, mask):
+        others = torch.as_tensor([s for s in range(len(mask)) if not mask[s]],
+                                 dtype=torch.long, device=sched.ctx.device)
+        before = [t[others].cpu() for t in _state_leaves(sched)]
+        out = run_wave(members, mask)
+        after = [t[others].cpu() for t in _state_leaves(sched)]
+        if any(not torch.equal(a, b) for a, b in zip(before, after)):
+            raise SystemExit(f"a masked wave over slots {members} changed a "
+                             f"non-member's mamba state")
+        checks.append(len(others))
+        return out
+    sched._run_wave = checked
+
+
+def hybrid_phase(card: str) -> dict:
+    """State-carrying models on the serving paths: (a) full-width Jamba at
+    4 layers through the launcher, then eager and compiled in turns; (c)
+    the same weights from pages (the serve trace against the slot map, the
+    shared-stem trace with the trie, a tight budget with preemption); (d)
+    waves of 2, every non-member's state checked across each wave; (b)
+    Mamba2-130m whole, eager and compiled in turns.  Returns the grouped
+    kernels' launches over the phase."""
+    phase("serve (hybrid)")
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import memory_model as mm
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine
+
+    t_phase = time.perf_counter()
+    gc.collect()                          # the Mixtral phases' weights
+    torch.cuda.empty_cache()
+    counters = (gm.grouped_swiglu, gm.grouped_matmul)
+    for fn in counters:
+        fn.launches = 0
+    passes = 0
+
+    # (a) the launcher's run, compiled
+    torch.cuda.reset_peak_memory_stats()
+    sched, m = serve.main(HYBRID_ARGS)
+    torch.cuda.synchronize()
+    params, cfg, ctx, scfg = sched.params, sched.cfg, sched.ctx, sched.scfg
+    info = engine.step_cache_info()
+    unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
+    if m["requests"] != 8 or unfinished or m["nonfinite_logits"] or not info["graphs"]:
+        raise SystemExit(f"Jamba: {m['requests']}/8 requests done, short {unfinished}, "
+                         f"{m['nonfinite_logits']} non-finite rows, {info['graphs']} graphs")
+    want = [r.out for r in sorted(sched.finished, key=lambda r: r.rid)]
+    passes += m["decode_waves"] + m["prefill_chunks"]
+    n_moe = sum(1 for spec in cfg.layer_specs() if spec.ffn == "moe")
+    weights = sum(t.nbytes for t in engine.leaves(params))
+    counts = mm.param_counts(cfg, mm.Parallelism())
+    layer_params = sum(v for k, v in counts.items() if k not in ("embed", "lm_head"))
+    mamba_bytes = sum(t.nbytes for layer in params["layers"] if "A_log" in layer["mixer"]
+                      for t in engine.leaves(layer["mixer"]))
+    read = weights - params["embed"].nbytes       # a decode pass: all but the table
+    print(f"{card}: (a) Jamba {cfg.num_layers} layers ({[s.mixer + '/' + s.ffn for s in cfg.layer_specs()]}), "
+          f"bf16: {weights / 1e9:.3f} GB of weights allocated; the memory model's "
+          f"layer_params {layer_params * 2 / 1e9:.3f} GB + embed/head "
+          f"{(counts['embed'] + counts['lm_head']) * 2 / 1e9:.3f} GB (its mamba term "
+          f"{counts['mamba'] * 2 / 1e9:.3f} GB against {mamba_bytes / 1e9:.3f} GB "
+          f"allocated: the reference's B/C count); {info['captures']} graphs captured "
+          f"in {info['capture_s']:.3f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    del sched
+    gc.collect()
+    runs = _turns(HYBRID_ARGS, params, card, "(a) Jamba", want)
+    passes += sum(r["passes"] for r in runs)
+    # (c) pages: the serve trace against the slot map, logits rows bit-equal
+    logits = {"slot map": {}, "paged": {}}
+    slot = _paged_run(HYBRID_ARGS, params, record=logits["slot map"])
+    paged = _paged_run(HYBRID_ARGS + ["--page-size", str(PAGE)], params,
+                       record=logits["paged"])
+    passes += slot["passes"] + paged["passes"]
+    rows = logits["slot map"]
+    diff = [k for k in rows if not np.array_equal(rows[k], logits["paged"].get(k))]
+    if slot["streams"] != want or paged["streams"] != want or diff \
+            or rows.keys() != logits["paged"].keys():
+        raise SystemExit(f"Jamba paged: streams or logits rows differ from the slot "
+                         f"map's ({diff[:4]} of {len(rows)})")
+    print(f"{card}: (c) Jamba serve trace, pages of {PAGE}: streams equal the slot "
+          f"map's, all {len(rows)} sampled logits rows bit-equal; modeled (bf16) state "
+          f"block {paged['state_block_bytes'] / 1e6:.3f} MB a request beside page "
+          f"high-watermark {paged['metrics']['page_hwm_bytes'] / 1e6:.3f} MB; on the "
+          f"card (fp32) the state pools {paged['state_pool_bytes'] / 1e6:.3f} MB beside "
+          f"the K/V pools {(paged['cache_bytes'] - paged['state_pool_bytes']) / 1e6:.3f} "
+          f"MB; {paged['metrics']['tok_per_s']:.1f} tok/s paged against "
+          f"{slot['metrics']['tok_per_s']:.1f} on the slot map", flush=True)
+    base = HYBRID_ARGS + ["--max-slots", str(PREFIX_SLOTS), "--cache-len",
+                          str(PREFIX_CACHE_LEN)]
+    slot = _paged_run(base, params, trace=_prefix_trace(cfg))
+    trie = _paged_run(base + ["--page-size", str(PAGE), "--prefix-cache"], params,
+                      trace=_prefix_trace(cfg))
+    passes += slot["passes"] + trie["passes"]
+    pm = trie["metrics"]
+    if trie["streams"] != slot["streams"] or pm["prefix_hits"] < PREFIX_HITS:
+        raise SystemExit(f"Jamba prefix reuse: {pm['prefix_hits']} hits of 8, streams "
+                         f"{'equal' if trie['streams'] == slot['streams'] else 'differ'}")
+    per_req = trie["worst_case"]
+    floor = mm.serving_paged_peak_bytes(cfg, page_bytes=0, decode_tokens=PREFIX_SLOTS,
+                                        prefill_tokens=scfg.prefill_chunk)
+    budget = floor + BUDGET_REQUESTS * per_req
+    spill, restore = [], []
+    tight = _paged_run(base + ["--page-size", str(PAGE), "--prefix-cache", "--preemption",
+                               "--budget-gb", repr(budget / 1e9)], params,
+                       trace=_prefix_trace(cfg, priorities=True), spill=spill,
+                       restore=restore)
+    passes += tight["passes"]
+    cm = tight["metrics"]
+    if cm["preemptions"] < 1 or tight["streams"] != slot["streams"]:
+        raise SystemExit(f"Jamba under the budget: {cm['preemptions']} preemptions, "
+                         f"streams must equal the slot map's")
+    print(f"{card}: (c) Jamba shared {PREFIX_STEM}-token stem at cache_len "
+          f"{PREFIX_CACHE_LEN}: prefix hits {pm['prefix_hits']} of 8 "
+          f"({pm['prefix_tokens_reused']} tokens reused, each resuming from its trie "
+          f"node's state snapshot), streams equal the slot map's; budget "
+          f"{budget / 1e9:.4f} GB ({BUDGET_REQUESTS} x {per_req / 1e6:.3f} MB worst case): "
+          f"{cm['preemptions']} preemptions, streams equal, spill "
+          f"{1e3 * sum(spill) / max(len(spill), 1):.3f} ms and restore "
+          f"{1e3 * sum(restore) / max(len(restore), 1):.3f} ms a preemption (pages and "
+          f"state block); {cm['tok_per_s']:.1f} tok/s", flush=True)
+
+    # (d) waves of 2, no residency: every non-member's state checked
+    checks, rows = [], {}
+    wave = serve.parse_args(HYBRID_ARGS + ["--wave-size", "2"])
+    sched, trace = serve.setup(wave, params=params)
+    _wave_checked(sched, checks)
+    _recording(sched, rows)
+    mw = sched.run(trace)
+    sched.close()
+    got = [r.out for r in sorted(sched.finished, key=lambda r: r.rid)]
+    passes += mw["decode_waves"] + mw["prefill_chunks"] + mw["demand_reruns"]
+    del sched
+    gc.collect()
+    if got != want or not mw["expert_waves"] or not sum(checks):
+        raise SystemExit(f"Jamba waves of 2: streams {'equal' if got == want else 'differ'}, "
+                         f"{mw['expert_waves']} waves, {sum(checks)} non-member checks")
+    print(f"{card}: (d) Jamba waves of 2: {mw['expert_waves']} masked waves, streams "
+          f"equal the default run's; every non-member's mamba state and conv tail "
+          f"bit-equal across its wave ({sum(checks)} slot checks on the host); "
+          f"mean_distinct_experts {mw['mean_distinct_experts']:.3f}, "
+          f"{mw['tok_per_s']:.1f} tok/s", flush=True)
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    for name, n in launches.items():
+        if n != n_moe * passes:
+            raise SystemExit(f"{name} launched {n} times over the Jamba runs; they run "
+                             f"it {n_moe * passes} times (once per MoE layer per pass)")
+    # a decode wave's device time, after the path's counts were read
+    step = engine.get_decode_step(cfg, ctx)
+    holder = _Holder()
+    own = step.static_cache(engine.init_serve_cache(params, cfg, scfg.max_slots,
+                                                    scfg.cache_len), holder)
+    tok = torch.ones((scfg.max_slots, 1), dtype=torch.long, device=ctx.device)
+    wave_ms, wave_host, _ = device_ms(lambda: step(params, own, tok))
+    del own, holder
+    print(f"{card}: (a) Jamba warm 4-slot decode wave: device {wave_ms:.4f} ms, host "
+          f"{wave_host:.4f} ms; it reads {read / 1e9:.3f} GB of weights, at least "
+          f"{1e3 * read / HBM_BYTES_PER_S:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"({100 * 1e3 * read / HBM_BYTES_PER_S / wave_ms:.1f}% of the bound)", flush=True)
+
+    del params, runs, step
+    engine.clear_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Mamba2-130m, every layer at full width
+    before = [fn.launches for fn in counters]
+    torch.cuda.reset_peak_memory_stats()
+    sched, m = serve.main(MAMBA_ARGS)
+    params = sched.params
+    unfinished = [r.rid for r in sched.finished if len(r.out) != r.max_new_tokens]
+    if m["requests"] != 8 or unfinished or m["nonfinite_logits"]:
+        raise SystemExit(f"Mamba2: {m['requests']}/8 requests done, short {unfinished}")
+    want = [r.out for r in sorted(sched.finished, key=lambda r: r.rid)]
+    print(f"{card}: (b) Mamba2-130m, {sched.cfg.num_layers} layers, "
+          f"{sum(t.nbytes for t in engine.leaves(params)) / 1e9:.3f} GB bf16", flush=True)
+    del sched
+    gc.collect()
+    _turns(MAMBA_ARGS, params, card, "(b) Mamba2-130m", want)
+    if [fn.launches for fn in counters] != before:
+        raise SystemExit("Mamba2-130m has no MoE layer, yet a grouped kernel launched")
+    del params
+    engine.clear_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{card}: serve (hybrid) phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_phase() -> None:
     """The reduced config in fp32: the card (kernels) against the CPU (plain
     versions), same weights, same requests."""
@@ -2953,6 +3290,9 @@ def check_phase() -> None:
           f"greedy streams of 4 requests {'equal' if same else 'DIFFER'}", flush=True)
     if not np.isfinite(err) or err > 1e-3 or not same:
         raise SystemExit("the card disagrees with the CPU on the reduced config")
+
+    for arch in ("jamba-1.5-large-398b", "mamba2-130m"):
+        _check_state_model(arch)
 
     # two training steps from the same weights on each training leg: the
     # card's kernels against the CPU's plain versions
@@ -3018,6 +3358,76 @@ def check_phase() -> None:
             raise SystemExit(f"the 2x2 mesh's reduced training run of the {leg} leg: the "
                              f"card disagrees with the CPU (tolerance {tol}), or the "
                              f"ranks disagree")
+
+
+def _check_state_model(arch: str) -> None:
+    """A reduced state-carrying config in fp32, the card against the CPU:
+    prefill logits and the scheduler's greedy streams; for Jamba also, on
+    the card, 2 of its 4 experts resident with the prefetch off, so decode
+    waves miss, re-run from the members' states put back, and must give the
+    default run's streams."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import DistContext
+    from repro_torch.models import transformer
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request, ServeConfig)
+
+    cfg = get_config(arch).reduced()
+    cpu = transformer.init_params(cfg, device="cpu", seed=1)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 48))
+
+    def serve(params, dev, hook=None, **kw):
+        reqs = [Request(rid=i, tokens=t, max_new_tokens=12) for i, t in enumerate(
+            np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 32)))]
+        sched = ContinuousBatchingScheduler(
+            params, cfg, DistContext(device=torch.device(dev)),
+            ServeConfig(max_slots=2, cache_len=80, prefill_chunk=16, **kw))
+        if hook is not None:
+            hook(sched)
+        try:
+            sched.run(reqs)
+        finally:
+            sched.close()
+        return [r.out for r in reqs], sched
+
+    outs = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, DistContext(device=torch.device(dev)),
+                {"tokens": torch.as_tensor(tokens, device=dev)})
+        outs[dev] = (logits.cpu(), serve(params, dev)[0])
+    err = (outs["cpu"][0] - outs["cuda"][0]).abs().max().item()
+    same = outs["cpu"][1] == outs["cuda"][1]
+    print(f"reduced {cfg.name} fp32: prefill logits max |card - cpu| = {err:.3e}; "
+          f"greedy streams of 4 requests {'equal' if same else 'DIFFER'}", flush=True)
+    if not np.isfinite(err) or err > 1e-3 or not same:
+        raise SystemExit(f"the card disagrees with the CPU on the reduced {arch}")
+    if cfg.moe is None:
+        return
+    decode_reruns = []
+
+    def no_prefetch(sched):
+        sched.residency.prefetch = lambda p, predicted: None
+        wave = sched._decode_wave_expert
+
+        def counted(now):
+            before = sched.demand_reruns
+            wave(now)
+            decode_reruns.append(sched.demand_reruns - before)
+        sched._decode_wave_expert = counted
+    got, sched = serve(_to(cpu, "cuda"), "cuda", hook=no_prefetch, wave_size=2,
+                       resident_experts=2)
+    print(f"reduced {cfg.name} fp32 on the card, 2 of {cfg.moe.num_experts} experts "
+          f"resident, prefetch off: {sched.demand_reruns} demand re-runs "
+          f"({sum(decode_reruns)} of decode waves); streams "
+          f"{'equal' if got == outs['cuda'][1] else 'DIFFER from'} the default run's",
+          flush=True)
+    if got != outs["cuda"][1] or not sum(decode_reruns):
+        raise SystemExit(f"the reduced {arch} under residency: decode waves must re-run "
+                         f"and give the default run's streams")
 
 
 def _check_rank(rank: int, store: str, device: str, out_dir: str) -> None:
@@ -3095,6 +3505,7 @@ def main() -> int:
     paths["serve (paged)"] = paged_phase(served, card)
     paths["serve (expert-aware)"] = expert_phase(served, card)
     del served
+    paths["serve (hybrid)"] = hybrid_phase(card)
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
     paths["train (EP, 2 ranks)"] = train_ep_phase(ce)

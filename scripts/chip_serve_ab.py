@@ -8,7 +8,8 @@ change, parent): ``chip_smoke.py``'s build phase, then full-width
 Mixtral-8x7B at 4 layers (``chip_smoke.SERVE_ARGS``, random weights from
 its seed) through the CUDA-graph steps.  Each run prints the serve
 trace's warm ms a pass on the slot map and on 16-token pages (five runs of
-each after a first that captures the graphs), the device ms of one prefill
+each after a first that captures the graphs) and on the slot map with every
+step eager (five runs after a first), the device ms of one prefill
 chunk and one extend chunk (1 x 16 tokens), and the device ms of a warm
 4-slot decode wave, paged and on the slot map, at the serve trace's cache
 length and at 4096, beside the card's name and power limit.  Needs a CUDA device; each
@@ -34,7 +35,8 @@ c.build_phase()
 sched, _ = serve.setup(serve.parse_args(c.SERVE_ARGS))
 params, cfg, ctx, scfg = sched.params, sched.cfg, sched.ctx, sched.scfg
 del sched
-for name, flags in (("slot map", []), ("pages", ["--page-size", str(c.PAGE)])):
+for name, flags in (("slot map", []), ("pages", ["--page-size", str(c.PAGE)]),
+                    ("slot map, eager", ["--eager"])):
     ms = []
     for turn in range(1 + TRACE_RUNS):
         sched, trace = serve.setup(serve.parse_args(c.SERVE_ARGS + flags), params=params)

@@ -172,15 +172,22 @@ H100_80G = HardwareProfile("h100-80g", 80e9, 989e12, 3.35e12, 450e9)
 
 
 # ---------------------------------------------------------------------------
-# registry: the port carries only the architectures it serves
+# registry: the port carries the architectures whose modules it has
 # ---------------------------------------------------------------------------
 
-_MODULES = {"mixtral-8x7b": "mixtral_8x7b"}
+# config modules of this package: each defines ``CONFIG`` and may define
+# ``CONFIGS``, further variants (deepseek_mini: the paper's Model I and II)
+_MODULES = ("mixtral_8x7b", "jamba_1_5_large", "mamba2_130m", "deepseek_mini",
+            "llama4_scout", "gemma3_27b", "llama3_2_3b", "yi_9b", "starcoder2_3b")
 
 
 def registry() -> dict[str, ModelConfig]:
-    return {name: importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
-            for name, mod in _MODULES.items()}
+    out: dict[str, ModelConfig] = {}
+    for name in _MODULES:
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        for cfg in (mod.CONFIG, *getattr(mod, "CONFIGS", ())):
+            out[cfg.name] = cfg
+    return out
 
 
 def get_config(name: str) -> ModelConfig:

@@ -18,6 +18,11 @@ counterpart of ``jax.disable_jit``, for comparisons.
 low-priority residents spilled to the host under admission pressure.
 ``--inject`` fires faults at scheduler steps (``runtime/faults.py``).
 
+``--arch`` takes every config of ``repro_torch.configs``: attention
+decoders, the pure SSM Mamba2-130m and the hybrid Jamba-1.5-Large, whose
+mamba layers carry a constant-size state per request (the slot map's rows,
+one state block per request in the paged cache).
+
 ``--wave-size``, ``--expert-batching`` and ``--resident-experts`` serve
 expert-aware (``serving/residency.py``): subset decode waves grouped by
 predicted expert overlap, and only that many experts per MoE layer resident
@@ -45,6 +50,15 @@ prices its replicas, and the experts it replicates stay resident.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --smoke --device cpu --expert-batching --wave-size 2 --resident-experts 2 \
       --probe-router
+  # state-carrying models, with every flag above: full-width Jamba-1.5-Large
+  # cut to its period's first 4 layers (mamba/dense, mamba/MoE, mamba/dense,
+  # attention/MoE), and Mamba2-130m whole, on the card; the reduced Jamba on
+  # the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+      --layers 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+      --smoke --device cpu
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""One transformer layer: attention mixer + FFN (dense | MoE | none).
+"""One transformer layer: mixer (attention | Mamba-2) + FFN (dense | MoE | none).
 
 The training forward and the serving forms of a layer: the forward and the
 cache-building prefill (``apply_layer``), single-token decode
@@ -6,7 +6,11 @@ cache-building prefill (``apply_layer``), single-token decode
 (``apply_layer_extend``).  Decode and extension carry one position per batch
 row (``pos``: (B,) int), so every row of a batch -- every slot of the
 serving scheduler's pool -- has its own RoPE positions, ring write cursor
-and valid length.  They write the new K/V into the cache tensors in place.
+and valid length.  They write the new K/V, or a mamba layer's new state and
+conv tail (``models/ssm.py``), into the cache tensors in place: a CUDA
+graph captured over the cache reads and writes the same tensors at every
+replay.  A masked decode keeps the cache of the rows outside its mask bit
+for bit, every leaf of it.
 
 Attention runs against the cache in the cache's type (the serving pool is
 fp32 whatever the weights' type); its output is cast back to the
@@ -25,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.chunking import ScheduleSpec
 from repro_torch.core.moe import DistContext, moe_ffn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           extend_attention)
 from repro_torch.models.layers import apply_mlp, apply_norm, apply_rope
@@ -53,11 +58,6 @@ def layer_ctx(ctx: DistContext, moe_index: Optional[int]) -> DistContext:
     if ctx.placements is not None:
         changes.update(placement=ctx.placements[moe_index], placements=None)
     return dataclasses.replace(ctx, **changes)
-
-
-def _require_attn(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
-        raise NotImplementedError(f"{spec.mixer!r} mixers are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +285,23 @@ def attn_mixer_extend(p: dict, x: torch.Tensor, cache: dict, pos0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# mamba mixer state
+# ---------------------------------------------------------------------------
+
+def write_state(cache: dict, state: dict,
+                mask: Optional[torch.Tensor] = None) -> None:
+    """Copy a mamba layer's new ``state`` into its cache tensors in place,
+    in the cache's type; with ``mask`` ((B,) bool) only its rows, the
+    others keeping every bit."""
+    for name, new in state.items():
+        new = new.to(cache[name].dtype)
+        if mask is not None:
+            keep = mask.reshape((-1,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new, cache[name])
+        cache[name].copy_(new)
+
+
+# ---------------------------------------------------------------------------
 # whole layer
 # ---------------------------------------------------------------------------
 
@@ -311,20 +328,28 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
     Under autograd without a cache, ``remat_policy`` "full" or "memfine"
     wraps the layer in a non-reentrant checkpoint (Megatron full
     recomputation); the MoE's per-chunk checkpoints nest inside it, as the
-    JAX package's nested ``jax.checkpoint``s do."""
-    _require_attn(spec)
+    JAX package's nested ``jax.checkpoint``s do.  A mamba layer's cache is
+    its SSD state after the prompt and the prompt's last w-1 conv inputs."""
     if cache_len is not None:
         h = apply_norm(params["norm1"], x, cfg.norm)
-        h, (k, v) = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx,
-                               causal, return_kv=True)
-        cache = {"attn": build_attn_cache(k, v, spec, cache_len,
-                                          cache_dtype or x.dtype)}
+        dtype = cache_dtype or x.dtype
+        if spec.mixer == "attn":
+            h, (k, v) = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx,
+                                   causal, return_kv=True)
+            cache = {"attn": build_attn_cache(k, v, spec, cache_len, dtype)}
+        else:
+            h, state = ssm_mod.apply_ssm(params["mixer"], h, spec.ssm,
+                                         return_state=True)
+            cache = {"ssm": {n: t.to(dtype) for n, t in state.items()}}
         x, stats = _ffn(params, x + h, spec, cfg, ctx)
         return x, stats if stats is not None else zero_stats(cfg, x.device), cache
 
     def layer_fn(x):
         h = apply_norm(params["norm1"], x, cfg.norm)
-        h = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx, causal)
+        if spec.mixer == "attn":
+            h = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx, causal)
+        else:
+            h = ssm_mod.apply_ssm(params["mixer"], h, spec.ssm)
         x, stats = _ffn(params, x + h, spec, cfg, ctx)
         return x, stats if stats is not None else zero_stats(cfg, x.device)
 
@@ -353,10 +378,13 @@ def apply_layer_decode(params: dict, x: torch.Tensor, cache: dict,
     or (x, cache, (B, E) routed load per row) with ``return_load``: the
     JAX package's (E,) load of a one-slot step, for every slot at once.
     ``mask`` ((B,) bool) writes the cache of its rows only."""
-    _require_attn(spec)
     h = apply_norm(params["norm1"], x, cfg.norm)
-    h, cache["attn"] = attn_mixer_decode(params["mixer"], h, cache["attn"],
-                                         pos, cfg, spec, ctx, mask)
+    if spec.mixer == "attn":
+        h, cache["attn"] = attn_mixer_decode(params["mixer"], h, cache["attn"],
+                                             pos, cfg, spec, ctx, mask)
+    else:
+        h, state = ssm_mod.decode_ssm(params["mixer"], h, cache["ssm"], spec.ssm)
+        write_state(cache["ssm"], state, mask)
     x, stats = _ffn(params, x + h, spec, cfg, ctx)
     if return_load:
         return x, cache, _row_load(stats, cfg, x)
@@ -368,11 +396,17 @@ def apply_layer_extend(params: dict, x: torch.Tensor, cache: dict,
                        pos0: torch.Tensor, *, return_load: bool = False):
     """C-token cache extension (chunked prefill); x: (B, C, d) at per-row
     positions pos0..pos0+C-1.  Returns (x, cache), or (x, cache, (B, E)
-    routed load per row) with ``return_load``."""
-    _require_attn(spec)
+    routed load per row) with ``return_load``.  A mamba layer continues
+    each row from its own state, whatever its position."""
     h = apply_norm(params["norm1"], x, cfg.norm)
-    h, cache["attn"] = attn_mixer_extend(params["mixer"], h, cache["attn"],
-                                         pos0, cfg, spec, ctx)
+    if spec.mixer == "attn":
+        h, cache["attn"] = attn_mixer_extend(params["mixer"], h, cache["attn"],
+                                             pos0, cfg, spec, ctx)
+    else:
+        h, state = ssm_mod.apply_ssm(params["mixer"], h, spec.ssm,
+                                     return_state=True,
+                                     initial_state=cache["ssm"])
+        write_state(cache["ssm"], state)
     x, stats = _ffn(params, x + h, spec, cfg, ctx)
     if return_load:
         return x, cache, _row_load(stats, cfg, x)
@@ -381,8 +415,11 @@ def apply_layer_extend(params: dict, x: torch.Tensor, cache: dict,
 
 def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                      seq_len: int, dtype, device) -> dict:
-    """Decode cache for one layer (window layers ring-bounded)."""
-    _require_attn(spec)
+    """Decode cache for one layer (window layers ring-bounded; a mamba
+    layer's state and conv tail, whatever the length)."""
+    if spec.mixer != "attn":
+        return {"ssm": ssm_mod.init_state(batch, cfg.d_model, spec.ssm, dtype,
+                                          device)}
     Sc = cache_len(spec, seq_len)
     shape = (batch, Sc, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -1,5 +1,6 @@
-"""Decoder-only transformer over LayerSpec patterns: init, the training
-forward and prefill, decode.
+"""Decoder-only stack over LayerSpec patterns (attention and Mamba-2
+mixers, dense, MoE or no FFN): init, the training forward and prefill,
+decode.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (unless the
 embeddings are tied) and ``layers``, one dict per layer in layer order.  The
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.moe import DistContext
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm
 
 
@@ -33,21 +35,22 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_layers or cfg.num_patch_tokens or cfg.learned_pos:
         raise NotImplementedError(f"{cfg.name!r}: encoder, patch and learned-"
                                   "position inputs are not ported yet")
-    for spec in cfg.layer_specs():
-        blocks._require_attn(spec)
 
 
 def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut) -> dict:
     d, H, KH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     ones = lambda n: torch.ones(n, dtype=torch.float32, device=normal.device)  # noqa: E731
-    mixer = {"wq": normal((d, H * hd), d ** -0.5),
-             "wk": normal((d, KH * hd), d ** -0.5),
-             "wv": normal((d, KH * hd), d ** -0.5),
-             "wo": normal((H * hd, d), (H * hd) ** -0.5)}
-    if spec.attn.qk_norm:
-        mixer["q_norm"] = {"scale": ones(hd)}
-        mixer["k_norm"] = {"scale": ones(hd)}
+    if spec.mixer == "attn":
+        mixer = {"wq": normal((d, H * hd), d ** -0.5),
+                 "wk": normal((d, KH * hd), d ** -0.5),
+                 "wv": normal((d, KH * hd), d ** -0.5),
+                 "wo": normal((H * hd, d), (H * hd) ** -0.5)}
+        if spec.attn.qk_norm:
+            mixer["q_norm"] = {"scale": ones(hd)}
+            mixer["k_norm"] = {"scale": ones(hd)}
+    else:
+        mixer = ssm_mod.init_ssm(normal, d, spec.ssm)
     p = {"norm1": {"scale": ones(d)}, "mixer": mixer}
     if spec.ffn == "none":
         return p

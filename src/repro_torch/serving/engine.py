@@ -473,29 +473,40 @@ def get_extend_step(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
 def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                           layer_groups: tuple, page: int) -> CompiledStep:
     """The compiled paged decode wave step(params, pools, gather_tables,
-    write_pages, pos (B,), tokens (B,1)) -> (logits (B,1,V), pools, load
-    (B, L_moe, E)): ``load`` is each slot's routed load, for the
+    write_pages, state_blocks, pos (B,), tokens (B,1)) -> (logits (B,1,V),
+    pools, load (B, L_moe, E)): ``load`` is each slot's routed load, for the
     expert-aware scheduler.
 
-    ``pools`` holds one {"k", "v"} pair of (pages, page, KH, hd) page pools
-    per layer; ``layer_groups[i]`` is layer i's page group
-    (``serving/paging.py::Group``).  ``gather_tables`` is a tuple of (B,
-    n_blocks) page ids and ``write_pages`` one of (B,) page ids, one entry
-    per distinct group in (length, ring) order.  The step gathers every
-    slot's pages into the dense (B, ...) cache, runs the unchanged
-    ``transformer.decode_step`` and writes the one row it added per slot,
-    at the slot's position in its group, to the slot's write page: the
-    pools are the step's cache, updated in place; tables, positions and
-    tokens are copied in at every call."""
+    ``pools`` holds per layer one {"k", "v"} pair of (pages, page, KH, hd)
+    page pools, or for a mamba layer one {"ssm", "conv"} pair of (blocks,
+    *state shape) state pools; ``layer_groups[i]`` is layer i's page group
+    (``serving/paging.py::Group``), None for a mamba layer.
+    ``gather_tables`` is a tuple of (B, n_blocks) page ids and
+    ``write_pages`` one of (B,) page ids, one entry per distinct group in
+    (length, ring) order; ``state_blocks`` is the pair of (B,) state blocks
+    to read and to write when some layer is a mamba layer, () when none is.
+    The step gathers every
+    slot's pages and state block into the dense (B, ...) cache, runs the
+    unchanged ``transformer.decode_step``, writes the one K/V row it added
+    per slot, at the slot's position in its group, to the slot's write page
+    and the whole new state to the slot's write block: the pools are the
+    step's cache, updated in place; tables, positions and tokens are copied
+    in at every call."""
     def build():
-        groups = sorted(set(layer_groups), key=lambda g: (g.length, g.ring))
-        gidx = [groups.index(g) for g in layer_groups]
+        groups = sorted({g for g in layer_groups if g is not None},
+                        key=lambda g: (g.length, g.ring))
+        gidx = [None if g is None else groups.index(g) for g in layer_groups]
 
-        def fn(params, pools, gather_tables, write_pages, pos, tokens):
-            layers = [{"attn": {n: blocks.gather_paged_tokens(
-                          pool[n], gather_tables[j], 0, g.length)
-                          for n in ("k", "v")}}
-                      for pool, g, j in zip(pools, layer_groups, gidx)]
+        def fn(params, pools, gather_tables, write_pages, state_blocks, pos,
+               tokens):
+            layers = []
+            for pool, g, j in zip(pools, layer_groups, gidx):
+                if g is None:               # the slot's state block, a copy
+                    layers.append({"ssm": {n: t[state_blocks[0]]
+                                           for n, t in pool.items()}})
+                else:
+                    layers.append({"attn": {n: blocks.gather_paged_tokens(
+                        pool[n], gather_tables[j], 0, g.length) for n in ("k", "v")}})
             cache = {"pos": pos.clone(), "layers": layers}
             logits, cache, load = transformer.decode_step(
                 params, cfg, ctx, cache, tokens, return_load=True, per_row=True)
@@ -505,6 +516,10 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                     for g in groups]
             b = torch.arange(pos.shape[0], device=pos.device)
             for pool, layer, j in zip(pools, cache["layers"], gidx):
+                if j is None:
+                    for n, t in pool.items():
+                        t.index_put_((state_blocks[1],), layer["ssm"][n])
+                    continue
                 for n in ("k", "v"):
                     pool[n].index_put_((write_pages[j], rows[j] % page),
                                        layer["attn"][n][b, rows[j]])
@@ -517,13 +532,16 @@ def get_prefill_fn(cfg: ModelConfig, ctx: DistContext, cache_len: int,
                    dtype=torch.float32) -> CompiledStep:
     """The compiled single-pass prefill(params, batch) -> (logits (B,1,V),
     cache, load (L_moe, E)), ``load`` being ``forward``'s
-    ``load_per_layer``."""
+    ``load_per_layer`` ((0, 1) for a config without MoE, as ``decode_step``
+    gives it)."""
     def build():
         def fn(params, batch):
             logits, stats, cache = transformer.forward(
                 params, cfg, ctx, batch, return_cache=True,
                 cache_len=cache_len, cache_dtype=dtype)
-            return logits[:, -1:], cache, stats["load_per_layer"]
+            load = (stats["load_per_layer"] if cfg.moe is not None
+                    else logits.new_zeros((0, 1)))      # no MoE layer
+            return logits[:, -1:], cache, load
         return CompiledStep(fn, ctx.device)
     return _cached(("prefill", cfg, ctx, cache_len, dtype), build)
 
@@ -535,8 +553,9 @@ def get_prefill_fn(cfg: ModelConfig, ctx: DistContext, cache_len: int,
 # after restoring the experts it missed.  The reference keeps such steps
 # non-donating; here every step writes its cache in place, so the caller
 # rewinds: the masked decode writes members' rows only and a re-run rewrites
-# the same rows from the same inputs once ``pos`` is put back, and an extend
-# re-run puts back the rows the chunk overwrote (``snapshot_chunk``).
+# the same K/V rows from the same inputs once ``pos`` and the members' mamba
+# states are put back (``snapshot_state``), and an extend re-run puts back
+# the rows and states the chunk overwrote (``snapshot_chunk``).
 # ---------------------------------------------------------------------------
 
 def get_decode_step_masked(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
@@ -584,28 +603,58 @@ def get_router_probe(cfg: ModelConfig, ctx: DistContext) -> CompiledStep:
     return _cached(("router_probe", cfg, ctx), build)
 
 
+def snapshot_state(cache: dict, rows: Optional[torch.Tensor] = None) -> list:
+    """A copy of every mamba layer's state and conv tail (of ``rows`` only,
+    when given): what ``restore_state`` puts back before a re-run.  A run
+    advances a mamba layer's state, so a re-run from the advanced state
+    would apply its tokens twice."""
+    return [None if "ssm" not in layer else
+            {n: (t if rows is None else t[rows]).clone()
+             for n, t in layer["ssm"].items()}
+            for layer in cache["layers"]]
+
+
+def restore_state(cache: dict, saved: list,
+                  rows: Optional[torch.Tensor] = None) -> None:
+    """Put back what ``snapshot_state`` saved, in place."""
+    for layer, st in zip(cache["layers"], saved):
+        for n, t in (st or {}).items():
+            if rows is None:
+                layer["ssm"][n].copy_(t)
+            else:
+                layer["ssm"][n][rows] = t
+
+
 def snapshot_chunk(cache: dict, cfg: ModelConfig, C: int):
-    """The cache rows a C-token extend of ``cache`` overwrites, and its
-    positions: what ``rewind_chunk`` puts back before a re-run.  A chunk
-    that wraps a ring overwrites rows its earlier queries still see, so an
-    extend is not re-run-safe without them."""
+    """What a C-token extend of ``cache`` overwrites: the attention rows it
+    writes, every mamba layer's state and conv tail, and its positions; what
+    ``rewind_chunk`` puts back before a re-run.  A chunk that wraps a ring
+    overwrites rows its earlier queries still see, so an extend is not
+    re-run-safe without them."""
     pos0 = cache["pos"]
     rows = torch.arange(pos0.shape[0], device=pos0.device)[:, None]
     saved = []
     for spec, layer in zip(cfg.layer_specs(), cache["layers"]):
+        if "attn" not in layer:
+            saved.append(None)
+            continue
         attn = layer["attn"]
         idx = blocks.chunk_write_slots(spec, attn["k"].shape[1], pos0, C)
         saved.append((idx, {n: attn[n][rows, idx] for n in ("k", "v")}))
-    return pos0.clone(), saved
+    return pos0.clone(), saved, snapshot_state(cache)
 
 
 def rewind_chunk(cache: dict, snapshot) -> None:
     """Put back what ``snapshot_chunk`` saved, in place."""
-    pos0, saved = snapshot
+    pos0, saved, state = snapshot
     rows = torch.arange(pos0.shape[0], device=pos0.device)[:, None]
-    for layer, (idx, kv) in zip(cache["layers"], saved):
+    for layer, kept in zip(cache["layers"], saved):
+        if kept is None:
+            continue
+        idx, kv = kept
         for n, t in kv.items():
             layer["attn"][n][rows, idx] = t
+    restore_state(cache, state)
     cache["pos"].copy_(pos0)
 
 

@@ -4,34 +4,40 @@
 trie); this module owns the page pools and what runs on them.
 
 * **CacheLayout** -- the port's decode cache is ``{"pos": (B,), "layers":
-  [{"attn": {"k", "v"}}, ...]}`` (``models/transformer.py``), so its leaves
-  are classified directly: every K and V leaf is a *token* leaf, paged along
-  its token axis and grouped by ``Group(length, ring)`` from
-  ``blocks.cache_len`` and ``blocks._is_ring``; ``pos`` is kept on the host,
-  one per request.  The port serves attention decoders only, so there are
-  no *state* leaves; the allocator still has the state space (each request
-  holds one zero-byte state block), so its accounting is the reference's.
-* **PagedCachePool** -- one fp32 pool per token leaf, ``(RESERVED_PAGES +
-  pages, page, KH, hd)``.  A decode wave gathers each slot's page table
-  into the dense per-slot cache (``blocks.gather_paged_tokens``), runs the
-  unchanged ``transformer.decode_step`` and writes each slot's one new row
-  back to its page: the engine's ``get_paged_decode_step``, a CUDA graph
-  on the card whose static cache is the pools themselves.  So
-  every write here -- install, restore, the CoW page copy, the rebuild
-  after a fault -- goes into the same tensors in place; rebinding a pool
-  would leave a warm graph reading freed memory.
+  [{"attn": {"k", "v"}} or {"ssm": {"ssm", "conv"}}, ...]}``
+  (``models/transformer.py``), so its leaves are classified directly: every
+  K and V leaf is a *token* leaf, paged along its token axis and grouped by
+  ``Group(length, ring)`` from ``blocks.cache_len`` and ``blocks._is_ring``;
+  a mamba layer's SSD state and conv tail are *state* leaves, one
+  constant-size block per request in the allocator's state space; ``pos``
+  is kept on the host, one per request.  An attention decoder's state
+  blocks weigh 0 bytes, as the reference's do.
+* **PagedCachePool** -- one fp32 pool per leaf: ``(RESERVED_PAGES + pages,
+  page, KH, hd)`` per token leaf, ``(RESERVED_PAGES + blocks, *state
+  shape)`` per state leaf.  A decode wave gathers each slot's page table
+  into the dense per-slot cache (``blocks.gather_paged_tokens``) and each
+  slot's state block, runs the unchanged ``transformer.decode_step``, writes
+  each slot's one new K/V row back to its page and its whole new state back
+  to its block: the engine's ``get_paged_decode_step``, a CUDA graph on the
+  card whose static cache is the pools themselves.  So every write here --
+  install, restore, the CoW page copy, the rebuild after a fault -- goes
+  into the same tensors in place; rebinding a pool would leave a warm graph
+  reading freed memory.
 
 Paged decode is bit-identical to the slot map: the gathered dense cache
 carries the same live values, the zero page stands in for never-filled
-blocks, and rows past a request's filled length (stale rows of a reused
-page included) are masked to -inf scores before the softmax, so their
-weight is exactly zero either way.
+blocks (and the zero state block for an empty slot's state), and rows past
+a request's filled length (stale rows of a reused page included) are masked
+to -inf scores before the softmax, so their weight is exactly zero either
+way.  An empty slot writes the scratch page and the scratch state block,
+which nothing reads.
 
-Install, gather-dense (a prefix hit's resume point), spill, restore and the
-CoW page copy run eagerly; only the decode wave is a graph.  A spill copies
-a request's allocated pages (not its whole table, as the reference does:
-at a 4096-token window that is 256 blocks, almost all unallocated) to
-pinned host tensors on the card, plain tensors on the CPU.
+Install, gather-dense (a prefix hit's resume point, its state from the
+trie node's snapshot), spill, restore and the CoW page copy run eagerly;
+only the decode wave is a graph.  A spill copies a request's allocated
+pages (not its whole table, as the reference does: at a 4096-token window
+that is 256 blocks, almost all unallocated) and its state block to pinned
+host tensors on the card, plain tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import DistContext
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.serving import engine
 from repro_torch.serving.paging import (RESERVED_PAGES, SCRATCH_PAGE,
                                         STATE_SPACE, ZERO_PAGE, Group,
@@ -52,22 +59,31 @@ from repro_torch.serving.paging import (RESERVED_PAGES, SCRATCH_PAGE,
                                         PageTableOps, RequestPages, space_key)
 
 KV = ("k", "v")
+STATE = ("ssm", "conv")
 
 
 class CacheLayout:
-    """The page group of each layer's K and V leaves of one (cfg, cache_len)
-    decode cache."""
+    """Per layer of one (cfg, cache_len) decode cache: the page group of an
+    attention layer's K and V leaves, or None for a mamba layer, whose
+    state leaves have the shapes ``state_shapes``."""
 
     def __init__(self, cfg: ModelConfig, cache_len: int):
         self.row = cfg.num_kv_heads * cfg.resolved_head_dim  # a leaf's token
-        self.layer_groups: list[Group] = []
+        self.layer_groups: list[Optional[Group]] = []
+        self.state_shapes: list[Optional[dict]] = []
         for spec in cfg.layer_specs():
-            blocks._require_attn(spec)
-            Sc = blocks.cache_len(spec, cache_len)
-            self.layer_groups.append(Group(length=Sc,
-                                           ring=blocks._is_ring(spec, Sc)))
-        self.groups: list[Group] = sorted(set(self.layer_groups),
-                                          key=lambda g: (g.length, g.ring))
+            if spec.mixer == "attn":
+                Sc = blocks.cache_len(spec, cache_len)
+                self.layer_groups.append(Group(length=Sc,
+                                               ring=blocks._is_ring(spec, Sc)))
+                self.state_shapes.append(None)
+            else:
+                self.layer_groups.append(None)
+                self.state_shapes.append(ssm_mod.state_shapes(cfg.d_model, spec.ssm))
+        self.groups: list[Group] = sorted(
+            {g for g in self.layer_groups if g is not None},
+            key=lambda g: (g.length, g.ring))
+        self.has_state = any(s is not None for s in self.state_shapes)
 
     # -- modeled sizes (production dtype, not the fp32 pools) ----------------
 
@@ -76,7 +92,11 @@ class CacheLayout:
         return float(page * leaves * self.row * dtype_bytes)
 
     def state_bytes(self, dtype_bytes: int) -> float:
-        return 0.0                      # attention decoders carry no state
+        """One request's state block: every mamba layer's state and conv
+        tail (0 for an attention decoder)."""
+        return float(sum(math.prod(shape) for st in self.state_shapes
+                         if st is not None for shape in st.values())
+                     * dtype_bytes)
 
 
 class PagedCachePool:
@@ -84,9 +104,10 @@ class PagedCachePool:
 
     ``n_slots`` bounds the decode wave's width (the slot map's role).  Each
     group's pool holds the reference's default of ``(n_slots + 2) * blocks
-    + 8`` pages, allocated up front; the byte budget is the scheduler's,
-    through the paged memory model.  ``eager`` runs the decode wave's eager
-    function instead of its graph."""
+    + 8`` pages and the state pools ``n_slots + 2`` blocks, allocated up
+    front; the byte budget is the scheduler's, through the paged memory
+    model.  ``eager`` runs the decode wave's eager function instead of its
+    graph."""
 
     def __init__(self, params: dict, cfg: ModelConfig, ctx: DistContext,
                  n_slots: int, cache_len: int, page_size: int, *,
@@ -114,24 +135,46 @@ class PagedCachePool:
                                 copy_page_fn=self._copy_page)
 
         kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
-        pools = [{n: torch.zeros(
-                      (RESERVED_PAGES + self.alloc.spaces[space_key(g)].total,
-                       page_size) + kv, dtype=torch.float32, device=self.device)
-                  for n in KV} for g in self.layout.layer_groups]
+        state_rows = RESERVED_PAGES + self.alloc.spaces[STATE_SPACE].total
+        pools = []
+        for g, st in zip(self.layout.layer_groups, self.layout.state_shapes):
+            if g is None:
+                pools.append({n: torch.zeros((state_rows,) + st[n],
+                                             dtype=torch.float32, device=self.device)
+                              for n in STATE})
+            else:
+                rows = RESERVED_PAGES + self.alloc.spaces[space_key(g)].total
+                pools.append({n: torch.zeros((rows, page_size) + kv,
+                                             dtype=torch.float32, device=self.device)
+                              for n in KV})
         self._decode = engine.get_paged_decode_step(
             cfg, ctx, tuple(self.layout.layer_groups), page_size)
         # the graph's static cache: every later write goes into these tensors
         self.pools = pools if eager else self._decode.static_cache(pools, self)
 
     def _layer_pools(self, group: Optional[Group] = None):
-        """(pool dict, its group) per layer, only ``group``'s when given."""
+        """(pool dict, its group) per attention layer, only ``group``'s when
+        given."""
         return [(p, g) for p, g in zip(self.pools, self.layout.layer_groups)
-                if group is None or g == group]
+                if g is not None and (group is None or g == group)]
+
+    def _state_pools(self) -> list:
+        """The pool dict of every mamba layer, in layer order."""
+        return [p for p, g in zip(self.pools, self.layout.layer_groups) if g is None]
 
     # -- table assembly (host) ----------------------------------------------
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def _state_blocks(self, slot_rps: list) -> tuple:
+        """The (n_slots,) state blocks to gather and to write, the zero and
+        the scratch block for empty slots; () without state leaves."""
+        if not self.layout.has_state:
+            return ()
+        return tuple(self._ids([hole if rp is None or rp.state_block is None
+                                else rp.state_block for rp in slot_rps])
+                     for hole in (ZERO_PAGE, SCRATCH_PAGE))
 
     def _tables(self, slot_rps: list) -> tuple:
         """(n_slots, n_blocks_g) page ids per group to gather, the zero page
@@ -173,9 +216,8 @@ class PagedCachePool:
 
     def clear(self) -> None:
         """Zero every pool in place (the decode graph keeps its pointers)."""
-        for pool, _ in self._layer_pools():
-            for n in KV:
-                pool[n].zero_()
+        for t in engine.leaves(self.pools):
+            t.zero_()
 
     # -- high-level ops ------------------------------------------------------
 
@@ -188,12 +230,13 @@ class PagedCachePool:
 
     def decode_wave(self, params: dict, slot_rps: list, pos: np.ndarray,
                     toks: np.ndarray) -> torch.Tensor:
-        """One decode step over the slot map, paged: gather tables -> dense
-        per-slot caches -> unchanged decode_step -> each slot's new row to
-        its page.  ``slot_rps[s]`` is the RequestPages of the request in
-        slot s (None = empty slot: reads the zero page, writes the scratch
-        page); ``toks`` (n_slots, 1).  Returns the (n_slots, 1, V) logits on
-        the device."""
+        """One decode step over the slot map, paged: gather tables and state
+        blocks -> dense per-slot caches -> unchanged decode_step -> each
+        slot's new row to its page, its new state to its block.
+        ``slot_rps[s]`` is the RequestPages of the request in slot s (None =
+        empty slot: reads the zero page and block, writes the scratch ones);
+        ``toks`` (n_slots, 1).  Returns the (n_slots, 1, V) logits on the
+        device."""
         return self.decode_wave_loads(params, slot_rps, pos, toks)[0]
 
     def decode_wave_loads(self, params: dict, slot_rps: list, pos: np.ndarray,
@@ -201,21 +244,37 @@ class PagedCachePool:
         """``decode_wave`` that also reports each slot's routed load: returns
         (logits (n_slots, 1, V), load (n_slots, L_moe, E)) on the device.
         Membership is ``slot_rps[s] is not None``: a non-member reads the
-        zero page and writes the scratch page, so a wave never touches a
-        non-member's pages (its load row is garbage; the caller masks it).
-        Nothing on the host moves: the caller advances its members'
-        positions once the residency demand loop has a clean run.  A re-run
-        gathers the row the first run wrote at ``pos`` and rewrites it from
-        the same inputs before any query reads it, so it is re-run-safe."""
+        zero page and block and writes the scratch ones, so a wave never
+        touches a non-member's pages or state (its load row is garbage; the
+        caller masks it).  Nothing on the host moves: the caller advances
+        its members' positions once the residency demand loop has a clean
+        run.  A re-run gathers the K/V row the first run wrote at ``pos``
+        and rewrites it from the same inputs before any query reads it, but
+        the first run advanced every member's state: the caller puts it back
+        (``state_rows``, ``put_state_rows``) before a re-run."""
         step = self._decode.eager if self.eager else self._decode
         logits, _, load = step(params, self.pools, self._tables(slot_rps),
                                self._write_pages(slot_rps, pos),
+                               self._state_blocks(slot_rps),
                                self._ids(pos), self._ids(toks))
         return logits, load
 
+    def state_rows(self, rps: list):
+        """A copy of the state blocks of ``rps`` (device tensors): what
+        ``put_state_rows`` writes back before a re-run."""
+        ids = self._ids([rp.state_block for rp in rps])
+        return ids, [{n: pool[n][ids] for n in STATE} for pool in self._state_pools()]
+
+    def put_state_rows(self, saved) -> None:
+        ids, rows = saved
+        for pool, r in zip(self._state_pools(), rows):
+            for n in STATE:
+                pool[n].index_put_((ids,), r[n])
+
     def install(self, rp: RequestPages, dense: dict, filled: int,
                 shared_len: int = 0) -> None:
-        """Scatter a finished (B=1) prefill cache into the request's pages.
+        """Scatter a finished (B=1) prefill cache into the request's pages
+        and its state block.
 
         Allocates every block holding live rows; prefix-shared blocks stay
         shared when their content provably matches the dense cache (linear
@@ -234,27 +293,45 @@ class PagedCachePool:
                     self.ops.ensure_block(rp, g, b)
         self.ops.alloc_state(rp)
         tables = self._full_tables(rp.tables, SCRATCH_PAGE)
-        for (pool, g), layer in zip(self._layer_pools(), dense["layers"]):
+        for pool, g, layer in zip(self.pools, self.layout.layer_groups,
+                                  dense["layers"]):
+            if g is None:
+                for n in STATE:
+                    pool[n][rp.state_block].copy_(layer["ssm"][n][0])
+                continue
             for n in KV:
                 blocks.scatter_paged_tokens(pool[n], tables[g],
                                             layer["attn"][n][0], 0, self.page)
 
-    def gather_dense(self, rp_tables: dict, pos: int) -> dict:
+    def gather_dense(self, rp_tables: dict, state_vals: list, pos: int) -> dict:
         """A dense (B=1) cache from per-group block -> page lists (a prefix
-        trie match) at position ``pos``: the resume point of a prefix-hit
-        prefill.  Missing blocks read the zero page, exactly the cold
-        cache's zeros."""
+        trie match) and the state leaves of ``state_vals`` (a trie node's
+        ``state_snapshot``) at position ``pos``: the resume point of a
+        prefix-hit prefill.  Missing blocks read the zero page, exactly the
+        cold cache's zeros."""
         tables = self._full_tables(rp_tables, ZERO_PAGE)
-        layers = [{"attn": {n: blocks.gather_paged_tokens(
-                      pool[n], tables[g], 0, g.length)[None] for n in KV}}
-                  for pool, g in self._layer_pools()]
+        layers = []
+        for pool, g, st in zip(self.pools, self.layout.layer_groups, state_vals):
+            if g is None:
+                layers.append({"ssm": {n: st[n][None].to(self.device) for n in STATE}})
+            else:
+                layers.append({"attn": {n: blocks.gather_paged_tokens(
+                    pool[n], tables[g], 0, g.length)[None] for n in KV}})
         return {"pos": self._ids([pos]), "layers": layers}
+
+    def state_snapshot(self, dense: dict) -> list:
+        """Host copies of a dense (B=1) cache's state leaves, per layer
+        (None for an attention layer): what a prefix-trie node stores, so a
+        resume of a hybrid or SSM model is bit-exact."""
+        return [None if g is not None else
+                {n: self._to_host(layer["ssm"][n][0].clone()) for n in STATE}
+                for g, layer in zip(self.layout.layer_groups, dense["layers"])]
 
     # -- preemption: spill to host / restore ---------------------------------
 
     def _to_host(self, rows: torch.Tensor) -> torch.Tensor:
         if rows.device.type != "cuda":
-            return rows                 # indexing made it a copy already
+            return rows                 # the caller's indexing made a copy
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
         host.copy_(rows)
         return host
@@ -264,16 +341,27 @@ class PagedCachePool:
         return {g: self._ids([p for p in tables[g] if p is not None])
                 for g in self.groups}
 
+    def _rows(self, rp: RequestPages):
+        """The request's allocated page rows and state block rows, per
+        layer and leaf, in pool order."""
+        live = self._live(rp.tables)
+        for pool, g in zip(self.pools, self.layout.layer_groups):
+            if g is None:
+                for n in STATE:
+                    yield pool[n], self._ids([rp.state_block])
+            else:
+                for n in KV:
+                    yield pool[n], live[g]
+
     def spill(self, rp: RequestPages, fault_hook=None) -> dict:
-        """Copy the request's allocated pages to host memory and release
-        every page reference (trie pins survive: they hold their own).
+        """Copy the request's allocated pages and state block to host
+        memory and release every page reference (trie pins survive: they
+        hold their own).
 
         ``fault_hook`` fires mid-preemption -- after the host copy, before
         any reference is dropped -- so an injected fault aborts the spill
         with the resident request and the allocator fully intact."""
-        live = self._live(rp.tables)
-        rows = [self._to_host(pool[n][live[g]])
-                for pool, g in self._layer_pools() for n in KV]
+        rows = [self._to_host(pool[ids]) for pool, ids in self._rows(rp)]
         if fault_hook is not None:
             fault_hook("preempt_spill")
         saved = {"rows": rows,
@@ -283,10 +371,10 @@ class PagedCachePool:
         return saved
 
     def restore(self, saved: dict) -> RequestPages:
-        """Re-admission after a spill: fresh fully private pages, contents
-        copied back from the host, so the resumed decode is bit-identical to
-        one never preempted.  Raises PagesExhausted, holding nothing, when
-        the pages run out."""
+        """Re-admission after a spill: fresh fully private pages and state
+        block, contents copied back from the host, so the resumed decode is
+        bit-identical to one never preempted.  Raises PagesExhausted,
+        holding nothing, when the pages run out."""
         rp = self.ops.new_request()
         try:
             for g in self.groups:
@@ -297,11 +385,8 @@ class PagedCachePool:
         except PagesExhausted:
             self.ops.release(rp)
             raise
-        live = self._live(rp.tables)        # the spilled blocks, fresh pages
-        rows = iter(saved["rows"])
-        for pool, g in self._layer_pools():
-            for n in KV:
-                pool[n].index_put_((live[g],), next(rows).to(self.device))
+        for (pool, ids), rows in zip(self._rows(rp), saved["rows"]):
+            pool.index_put_((ids,), rows.to(self.device))
         return rp
 
     def release(self, rp: RequestPages) -> None:

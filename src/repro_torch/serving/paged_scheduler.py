@@ -11,9 +11,11 @@ memory substrate, as the JAX package's ``serving/paged_scheduler.py`` does:
   plus each resident's outstanding worst-case reservation, so a short
   request no longer reserves a whole max-length cache.
 * **Prefix reuse.**  With ``prefix_cache``, finished prefills register the
-  whole aligned blocks of their prompt in a token-id trie; a later request
-  sharing the prefix adopts those pages (CoW-shared), resumes its chunked
-  prefill from the matched boundary, and pays pages only for the tail.
+  whole aligned blocks of their prompt in a token-id trie, each node with a
+  host snapshot of the mamba layers' state at its boundary (taken as the
+  prefill passes it); a later request sharing the prefix adopts those pages
+  (CoW-shared), resumes its chunked prefill from the deepest matched node's
+  boundary and snapshot, and pays pages only for the tail.
 * **Preemption.**  With ``preemption``, a refused head-of-queue request
   walks the ServingGuard's escalation ladder: reclaim prefix pages, then
   spill the lowest-priority active request (strictly below the incoming
@@ -69,6 +71,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
         self.preemptions = 0
         self.prefix_evictions = 0
         self._shared_len: dict[int, int] = {}   # rid -> adopted prefix length
+        self._snapshots: dict[int, dict] = {}   # rid -> {aligned boundary:
+                                                # state snapshot}
 
     def _make_slot_pool(self):
         return None                     # the page pools replace the slot pool
@@ -169,9 +173,11 @@ class PagedScheduler(ContinuousBatchingScheduler):
             req.slot = self.free_slots.pop(0)
             req.rp = self.pool.ops.new_request()
             self._shared_len[req.rid] = matched
+            self._snapshots[req.rid] = {}
             if matched:
                 self.trie.adopt(req.rp, nodes)
-                dense = self.pool.gather_dense(req.rp.tables, matched)
+                dense = self.pool.gather_dense(req.rp.tables, nodes[-1].snapshot,
+                                               matched)
                 if self._pcache is not None:  # resume on the static cache
                     engine.copy_cache_(self._pcache, dense)
                     dense = self._pcache
@@ -256,7 +262,14 @@ class PagedScheduler(ContinuousBatchingScheduler):
         self.queue.insert(min(1, len(self.queue)), victim)
         return True
 
-    # -- prefill: paged install + prefix registration ------------------------
+    # -- prefill: state snapshots, paged install, prefix registration --------
+
+    def _chunk_done(self, req: Request, stop: int) -> None:
+        """A prefill chunk ending at an aligned boundary that may register:
+        keep the mamba layers' state there, what a prefix-hit resume needs."""
+        if (self.trie is not None and stop % self.align == 0
+                and stop <= self._registrable_len(len(req.tokens))):
+            self._snapshots[req.rid][stop] = self.pool.state_snapshot(req.cache)
 
     def _registrable_len(self, prompt_len: int) -> int:
         """Prefix blocks are stable only while no ring has wrapped: a prompt
@@ -284,12 +297,11 @@ class PagedScheduler(ContinuousBatchingScheduler):
             upto = self._registrable_len(S) // self.align * self.align
             if upto:
                 # the trie creates nodes only at boundaries this prefill
-                # passed (an adopted node evicted since stops it, as in the
-                # reference); attention decoders resume from pages alone, so
-                # a boundary's state is empty
-                shared = self._shared_len.get(req.rid, 0)
-                self.trie.register(req.tokens, upto, req.rp, dict.fromkeys(
-                    range(shared + self.align, upto + 1, self.align), ()))
+                # passed and snapshotted (an adopted node evicted since stops
+                # it, as in the reference)
+                self.trie.register(req.tokens, upto, req.rp,
+                                   self._snapshots.get(req.rid, {}))
+        self._snapshots.pop(req.rid, None)
         req.cache = None
         req.pos = S
         req.state = ACTIVE
@@ -307,6 +319,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
         self.pool.release(req.rp)
         req.rp = None
         self._shared_len.pop(req.rid, None)
+        self._snapshots.pop(req.rid, None)
         req.cache = None
         req.chunks_done = 0
         req.state = WAITING
@@ -376,8 +389,9 @@ class PagedScheduler(ContinuousBatchingScheduler):
     def _run_wave(self, members: list, mask: np.ndarray):
         """The paged member wave to the residency fixpoint.  Membership rides
         the page tables: a non-member slot gets ``rp=None`` (zero-page reads,
-        scratch-page writes), so no run touches a non-member's pages, and a
-        re-run rewrites the members' rows from the same inputs."""
+        scratch-page writes), so no run touches a non-member's pages or state
+        block, and a re-run rewrites the members' rows from the same inputs
+        once their state blocks are put back."""
         n = self.scfg.max_slots
         toks = np.zeros((n, 1), np.int64)
         pos = np.zeros((n,), np.int64)
@@ -392,6 +406,10 @@ class PagedScheduler(ContinuousBatchingScheduler):
             self.injector.maybe_fail_step(self.steps, "decode_wave")
         slot_rps = [self.active[i].rp if mask[i] and i in self.active else None
                     for i in range(n)]
+        # a re-run starts from the members' states before the first run
+        state = (self.pool.state_rows([self.active[i].rp for i in members])
+                 if self.residency is not None and self.pool.layout.has_state
+                 else None)
         out = {}
 
         def once():
@@ -403,7 +421,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
             out["load"] = load * mask[:, None, None]
             return out["load"].sum(0) > 0
 
-        self._demand_fixpoint(once)
+        self._demand_fixpoint(
+            once, None if state is None else lambda: self.pool.put_state_rows(state))
         return out["logits"], out["load"]
 
     def _rebuild_pools(self) -> None:

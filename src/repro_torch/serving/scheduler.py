@@ -44,10 +44,10 @@ its accepted requests with their tokens intact.
 
 The paged cache, prefix reuse and preemption are the subclass in
 ``serving/paged_scheduler.py``, which overrides this class's hooks
-(``_make_slot_pool``, ``submit``, ``_admit``, ``_install``,
-``_requeue_active``, ``_decode_wave``, ``_evict``, and the expert-aware
-wave's ``_run_wave``, ``_wave_fault_ok``, ``_wave_recover`` and
-``_advance_member``).
+(``_make_slot_pool``, ``submit``, ``_admit``, ``_chunk_done``,
+``_install``, ``_requeue_active``, ``_decode_wave``, ``_evict``, and the
+expert-aware wave's ``_run_wave``, ``_wave_fault_ok``, ``_wave_recover``
+and ``_advance_member``).
 """
 
 from __future__ import annotations
@@ -72,6 +72,10 @@ from repro_torch.serving import engine, residency
 
 WAITING, PREFILL, ACTIVE, FINISHED, SHED = ("waiting", "prefill", "active",
                                             "finished", "shed")
+
+#: the residency tier's modeled in-flight prefetch buffer: expert-layer rows
+#: the memory model prices on top of the resident set
+PREFETCH_EXPERTS = 1
 
 
 @dataclass
@@ -140,9 +144,6 @@ class ServeConfig:
     resident_experts: int = 0           # per-MoE-layer resident expert
                                         # capacity (0 = all resident, tier
                                         # off); cold experts host-offloaded
-    prefetch_experts: int = 1           # modeled in-flight prefetch buffer
-                                        # (expert-layer rows the memory model
-                                        # prices on top of the resident set)
     probe_router: bool = False          # router-only probe on prompt tokens
                                         # seeds the prefetch prediction of
                                         # requests with no telemetry yet
@@ -253,7 +254,7 @@ class ContinuousBatchingScheduler:
         if s.resident_experts <= 0:
             return {}
         return {"resident_experts": s.resident_experts,
-                "prefetch_experts": s.prefetch_experts}
+                "prefetch_experts": PREFETCH_EXPERTS}
 
     def _model_kw(self) -> dict:
         s = self.scfg
@@ -373,8 +374,12 @@ class ContinuousBatchingScheduler:
         req.cache = cache
         req.chunks_done += 1
         self.prefill_chunks += 1
+        self._chunk_done(req, stop)
         if req.chunks_done == len(spans):
             self._install(req, logits, now)
+
+    def _chunk_done(self, req: Request, stop: int) -> None:
+        pass                                    # paged: a boundary's state
 
     def _prefill_compute(self, req: Request, seg: torch.Tensor):
         """One expert-aware prefill or extend chunk for ``req``: its routed
@@ -574,8 +579,8 @@ class ContinuousBatchingScheduler:
     def _run_wave(self, members: list, mask: np.ndarray):
         """Run one member wave to the fixpoint.  Returns (logits, load) host
         arrays over all slots; non-member load rows are zero.  A re-run puts
-        back the positions the discarded run advanced and rewrites the same
-        rows from the same inputs."""
+        back the positions and the members' mamba states the discarded run
+        advanced and rewrites the same K/V rows from the same inputs."""
         toks = np.zeros((self.scfg.max_slots, 1), np.int64)
         for slot, req in self.active.items():
             toks[slot, 0] = req.next_token
@@ -585,6 +590,10 @@ class ContinuousBatchingScheduler:
         toks_t = torch.as_tensor(toks, device=dev)
         mask_t = torch.as_tensor(mask, device=dev)
         pos0 = self.cache["pos"].clone()
+        rows = state = None
+        if self.residency is not None:          # only a residency run re-runs
+            rows = torch.as_tensor(members, device=dev)
+            state = engine.snapshot_state(self.cache, rows)
         out = {}
 
         def once():
@@ -593,7 +602,11 @@ class ContinuousBatchingScheduler:
             out["logits"], out["load"] = _host(logits, load)
             return out["load"].sum(0) > 0
 
-        self._demand_fixpoint(once, lambda: self.cache["pos"].copy_(pos0))
+        def rewind():
+            self.cache["pos"].copy_(pos0)
+            engine.restore_state(self.cache, state, rows)
+
+        self._demand_fixpoint(once, rewind)
         return out["logits"], out["load"]
 
     def _decode_wave_expert(self, now: float) -> None:

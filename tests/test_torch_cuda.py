@@ -1152,7 +1152,7 @@ def test_paged_wave_makes_no_host_sync(cuda):
     pool.prepare_decode_write(rp, 72)
     step = pool._decode
     args = (pool.pools, pool._tables([rp, None]), pool._write_pages([rp, None], [72, 0]),
-            pool._ids([72, 0]), pool._ids([[1], [0]]))
+            pool._state_blocks([rp, None]), pool._ids([72, 0]), pool._ids([[1], [0]]))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1275,6 +1275,117 @@ def test_residency_keeps_weight_pointers_and_warm_graphs(cuda):
     sched.close()
     assert all(torch.equal(a, b) for a, b in zip(flat0, engine.leaves(params)))
     assert [t.data_ptr() for t in engine.leaves(params)] == ptrs
+    engine.clear_step_cache()
+
+
+# -- state-carrying models: mamba layers' state in the graphs' caches -------
+
+HYBRIDS = ("jamba-1.5-large-398b", "mamba2-130m")
+
+
+def _hybrid(arch, device):
+    cfg = get_config(arch).reduced()
+    return cfg, transformer.init_params(cfg, device=device, seed=0)
+
+
+def _hybrid_serve(params, cfg, cuda, eager=False, hook=None, **kw):
+    """Streams, metrics and the data_ptr of every state leaf of the slot
+    pool (or the page pools) before and after the run.  The scheduler is
+    dropped at the end, so the next run takes over its static caches and
+    warm graphs."""
+    from repro_torch.serving.paged_scheduler import PagedScheduler
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                    max_new_tokens=g) for i, (S, g) in enumerate(SERVE_TRACE)]
+    cls = PagedScheduler if kw.get("page_size") else ContinuousBatchingScheduler
+    sched = cls(params, cfg, DistContext(device=cuda),
+                ServeConfig(max_slots=2, cache_len=80, prefill_chunk=16, **kw),
+                eager=eager)
+    if hook is not None:
+        hook(sched)
+    if kw.get("page_size"):      # a mamba layer's pools: {"ssm", "conv"}
+        state = [t for pool in sched.pool.pools if "ssm" in pool for t in pool.values()]
+    else:
+        state = [t for layer in sched.cache["layers"] if "ssm" in layer
+                 for t in layer["ssm"].values()]
+    ptrs = [t.data_ptr() for t in state]
+    try:
+        m = sched.run(reqs)
+    finally:
+        sched.close()
+    after = [t.data_ptr() for t in state]
+    del sched, state
+    gc.collect()
+    return [r.out for r in reqs], m, (ptrs, after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_hybrid_graphs_equal_eager_and_keep_the_state_in_place(cuda, arch):
+    """Slot map and pages: compiled streams equal eager ones; every state
+    leaf keeps its data_ptr across the replays; a second run on warm graphs
+    captures nothing."""
+    cfg, params = _hybrid(arch, cuda)
+    engine.clear_step_cache()
+    eager = _hybrid_serve(params, cfg, cuda, eager=True)[0]
+    for kw in ({}, {"page_size": 16}):
+        got, _, (before, after) = _hybrid_serve(params, cfg, cuda, **kw)
+        assert got == eager and before == after and before
+        captures = engine.step_cache_info()["captures"]
+        again, _, (b2, a2) = _hybrid_serve(params, cfg, cuda, **kw)
+        assert again == eager and b2 == a2
+        assert engine.step_cache_info()["captures"] == captures
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [0, 16])
+def test_hybrid_demand_reruns_restore_the_state_in_place(cuda, page):
+    """Jamba, waves of 2, 1 resident expert per MoE layer, the prefetch off:
+    decode waves re-run from the members' states put back in place; streams
+    equal the all-resident run's, the state leaves keep their data_ptr, and
+    a second run captures nothing across its restores."""
+    cfg, params = _hybrid("jamba-1.5-large-398b", cuda)
+    engine.clear_step_cache()
+    kw = {"page_size": page} if page else {}
+    base = _hybrid_serve(params, cfg, cuda, **kw)[0]
+
+    def no_prefetch(sched):
+        sched.residency.prefetch = lambda p, predicted: None
+    tier = dict(kw, wave_size=2, resident_experts=1)
+    got, m, (before, after) = _hybrid_serve(params, cfg, cuda, hook=no_prefetch,
+                                            **tier)
+    assert got == base and m["demand_reruns"] > 0 and before == after
+    captures = engine.step_cache_info()["captures"]
+    again = _hybrid_serve(params, cfg, cuda, hook=no_prefetch, **tier)[0]
+    assert again == base and engine.step_cache_info()["captures"] == captures
+    engine.clear_step_cache()
+
+
+@pytest.mark.cuda
+def test_masked_graph_keeps_non_members_state_bit_for_bit(cuda):
+    """The masked wave's graph over rows with live state, masks changing
+    between replays: non-members keep every cache leaf bit for bit, and the
+    graph equals the eager step."""
+    cfg, params = _hybrid("jamba-1.5-large-398b", cuda)
+    ctx = DistContext(device=cuda)
+    engine.clear_step_cache()
+    seg = torch.arange(48, device=cuda).reshape(4, 12) % cfg.vocab_size
+    _, prefilled, _ = engine.get_prefill_fn(cfg, ctx, 40).eager(params, {"tokens": seg})
+    step = engine.get_decode_step_masked(cfg, ctx)
+    a = engine._fill(prefilled, iter([t.clone() for t in engine.leaves(prefilled)]))
+    b = engine._fill(prefilled, iter([t.clone() for t in engine.leaves(prefilled)]))
+    for mask in ([True, False, True, False], [False, True, True, False],
+                 [False, False, False, True]):
+        mask = torch.tensor(mask, device=cuda)
+        tok = torch.arange(4, device=cuda)[:, None] + 3
+        before = [t.clone() for t in engine.leaves(a)]
+        got, a, _ = step(params, a, tok, mask)
+        want, b, _ = step.eager(params, b, tok, mask)
+        assert torch.equal(got, want)
+        for x, y, z in zip(engine.leaves(a), before, engine.leaves(b)):
+            assert torch.equal(x[~mask], y[~mask]) and torch.equal(x, z)
+    assert step.captures == 1
     engine.clear_step_cache()
 
 

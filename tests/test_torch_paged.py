@@ -406,7 +406,7 @@ def test_prefix_adopted_cache_equals_cold_prefill_cache(models):
     assert matched == 24
     rp = sched.pool.ops.new_request()
     sched.trie.adopt(rp, nodes)
-    got = sched.pool.gather_dense(rp.tables, matched)
+    got = sched.pool.gather_dense(rp.tables, nodes[-1].snapshot, matched)
     _, cold = teng.prefill_chunked(tp, tcfg, TCTX,
                                    torch.as_tensor(toks[None]).long(), 32, 8)
     _equal_caches(got, cold)
@@ -417,13 +417,14 @@ def test_pool_spill_restore_roundtrip(models):
     """spill -> restore gives fresh private pages whose dense gather is the
     pre-spill cache bit for bit, and the spill drops every reference."""
     pool, rp, _, cache = _prefilled_pool(models, 32, 16)
-    before = pool.gather_dense(rp.tables, 16)
+    snap = pool.state_snapshot(cache)
+    before = pool.gather_dense(rp.tables, snap, 16)
     _equal_caches(before, cache)
     saved = pool.spill(rp)
     for key in pool.alloc.spaces:
         assert pool.alloc.allocated(key) == 0
     rp2 = pool.restore(saved)
-    _equal_caches(pool.gather_dense(rp2.tables, 16), before)
+    _equal_caches(pool.gather_dense(rp2.tables, snap, 16), before)
     pool.release(rp2)
     pool.alloc.audit()
 

@@ -642,10 +642,12 @@ def test_residency_admits_more_at_equal_budget(models):
             ("jax", jsch, GPU_64G, jp, jcfg, JCTX)):
         hw = dataclasses.replace(hw0, hbm_bytes=(lo + hi) / 2, alpha=1.0)
         for res in (0, 2):
+            # the port's prefetch buffer is the constant PREFETCH_EXPERTS
+            prefetch = {} if name == "port" else {"prefetch_experts": 1}
             sched = mod.ContinuousBatchingScheduler(
                 params, cfg, ctx, mod.ServeConfig(
                     max_slots=8, cache_len=64, prefill_chunk=8, hw=hw,
-                    resident_experts=res, prefetch_experts=1))
+                    resident_experts=res, **prefetch))
             out = _drive(sched, _trace(mod, n=8))
             runs[name, res] = (out, len(sched.finished), sched.max_occupancy,
                                sched.modeled_peak)
