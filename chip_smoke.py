@@ -76,7 +76,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               beside the K/V pages'); waves of 2, every non-member's mamba
               state read on the host before and after its wave; then
               Mamba2-130m whole, eager and compiled in turns.
-9. train   -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
+9. serve (enc-dec + VLM) -- full-width Whisper-small whole (12 encoder and
+              12 decoder layers; 4 requests of 1500 seeded frames and 16-64
+              prompt tokens, each prefilled alone, decoded as 4 rows) and
+              InternVL2-76B's backbone cut to 8 of its 80 layers (17.9 GB
+              bf16; 4 requests of 256 seeded patch embeddings ahead of 32
+              prompt tokens, one batched prefill): 32 greedy decode steps
+              eagerly and through the decode graph in turns, streams equal
+              and every step's logits bit-equal; ms a pass, tok/s, device
+              idle share (a profiled run's device ms against a warm run),
+              peak against the weights + decode_cache_bytes.  Whisper's
+              requests also from 16-token pages, the cross K/V in each
+              request's state block: every logits row bit-equal to the slot
+              map's; the state block's bytes beside a K/V page's.
+10. train  -- repro_torch.launch.train trains full-width Mixtral-8x7B (depth
               cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
               of 2 x 2048 tokens on the EP strategy at one peer with the
               fused expert leg, MACT choosing the schedule; every loss and
@@ -85,12 +98,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               the peak of one forward + backward against MACT's modeled
               activation bytes at MACT's schedule, at (2, 1) and unchunked:
               two sequential chunks must not raise it above one chunk's.
-10. train (ragged leg) -- the same model and steps through Trainer, built as
+11. train (ragged leg) -- the same model and steps through Trainer, built as
               launch/train.py builds it, on the three-launch ragged leg
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
               fused_moe must not launch.  The same profile and peaks (Eq. 2
               with the dispatch buffer's term).
-11. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
+12. train (EP, 2 ranks) -- launch/train.py --mesh 1x2 as 2 ranks on the one
               card over gloo (started as torchrun starts them): the same
               model, batch and steps, each rank holding 4 of the 8 experts
               of each layer and one of the two sequences, on the fused leg,
@@ -100,8 +113,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               launches; the phase fails on a non-finite loss, ranks that
               disagree, a kernel of a leg that did not launch on a rank,
               (2, 1) above (1, 1), or a step-1 ce off the one-peer run's.
-12. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
-              batch and fused leg, 5 steps, layer 0's router zeroed after
+13. train (adaptive + placement, 2 ranks) -- the EP phase's model, mesh,
+              batch and fused leg, 3 steps, layer 0's router zeroed after
               init (step 1 sends every token to experts 0 and 1, which
               identity places on rank 0): launch/train.py with global
               MACT, with --adaptive-mact, and with --adaptive-mact
@@ -122,7 +135,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               above (1, 1) on a placed run, or a placed run's first step
               (identity at cold start) that differs from the global run's
               in one bit.
-13. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
+14. train (resilience) -- full-width Mixtral-8x7B at 1 layer, bf16, fused
               leg: (a) launch/train.py --inject "oom@2,burst@2x64"
               --no-pipeline for 4 steps of 2 x 2048 tokens must escalate
               once, at step 2, to a deeper chunk count, and the burst must
@@ -140,7 +153,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               same kill-and-resume on 2 card ranks (gloo, reduced config),
               an injected OOM walked in lockstep, and one rank's torn
               payload invalidating the step for both.
-14. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
+15. train (families) -- 3 steps each, bf16, through Trainer as
+              launch/train.py builds it: Whisper-small whole (4 x 448
+              decoder tokens, 1500 frames each), InternVL2-76B at 2 layers
+              (2 x 2048 positions, 256 of them patches), Mamba2-130m whole
+              (2 x 2048), Jamba-1.5-Large at 1 layer (mamba/dense: the SSD
+              backward at d_model 8192) and Llama-4-Scout at 1 layer (16
+              experts top-1 and a shared expert, 2 x 1024, the EP fused leg
+              at one peer with MACT): finite losses and grad norms,
+              parameters changed, warm step seconds, tokens/s, peak against
+              the memory model (MACT's for the MoE run); every fused-leg
+              kernel must launch on Llama-4-Scout.
+16. kernels (Llama-4-Scout) -- the fused leg's kernels (scatter_rows,
+              gather_combine, ragged_matmul, fused_moe, segment_outer) at
+              Llama-4-Scout's MoE shapes (16 experts top-1, d_model 5120,
+              d_ff 8192) and the chunk MACT chose in the train (families)
+              run, at one peer: each against its plain version in fp32 and
+              bf16, relaunched, timed beside the plain version, the library
+              yardstick and the bound, as in phase 3.
+17. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
               steps on each leg must give the same schedules and losses, at
@@ -152,6 +183,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               against the CPU (prefill logits, greedy streams), and the
               reduced Jamba with 2 of 4 experts resident and the prefetch
               off, so decode waves re-run: the default run's streams.
+              The reduced Whisper-small and InternVL2-76B in fp32 on the
+              card against the CPU (prefill logits, greedy streams), and one
+              training step of every reduced config of the registry (the
+              fused leg where it has MoE layers): losses and grad norms
+              within 1e-4.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -208,8 +244,14 @@ SERVE_ARGS = ["--arch", "mixtral-8x7b", "--layers", "4", "--requests", "8",
               "--seed", "0"]
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started: the
+    script must end within its time limit, so each run shows where it
+    went."""
+    print(f"== {name} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
 
 
 def device_phase() -> str:
@@ -511,16 +553,17 @@ def jamba_kernels(entries: dict, randn) -> None:
     torch.cuda.empty_cache()
 
 
-def _routed_chunk(gen, dev):
-    """One FCDA chunk's routing at the training path's shapes, and the
-    plans the EP leg derives from it: ids of top-2 distinct experts of 8."""
+def _routed_chunk(gen, dev, t: int, n_exp: int, k: int):
+    """One FCDA chunk's routing at one peer, and the plans the EP leg
+    derives from it: ids of the top-``k`` distinct experts of ``n_exp``
+    for each of ``t`` tokens."""
     import torch
     from repro_torch.core import dispatch as dsp
-    scores = torch.rand((T_CHUNK, E), generator=gen, device=dev)
-    ids = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :TOP_K]
-    up = dsp.make_unified_plan(ids.to(torch.int32), E, 1, cap_send=T_CHUNK * TOP_K)
-    rows = T_CHUNK * TOP_K
-    R = -(-(rows + E * BLOCK_M) // BLOCK_M) * BLOCK_M
+    scores = torch.rand((t, n_exp), generator=gen, device=dev)
+    ids = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
+    up = dsp.make_unified_plan(ids.to(torch.int32), n_exp, 1, cap_send=t * k)
+    rows = t * k
+    R = -(-(rows + n_exp * BLOCK_M) // BLOCK_M) * BLOCK_M
     plan = dsp.recv_ragged_plan(up.counts, dsp.eids_from_counts(up.counts, rows),
                                 R, BLOCK_M)
     return up, plan, R
@@ -565,9 +608,208 @@ def _ep_rank_layout(gen, dev, spec=None):
 PLACED_LOAD = (100, 100, 10, 10, 10, 10, 10, 10)
 
 
+# the TPU kernel each training-path kernel replaces
+REPLACES = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
+            "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
+            "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
+            "ragged_swiglu": "src/repro/kernels/ragged_mlp.py:131",
+            "fused_moe": "src/repro/kernels/fused_moe.py:105"}
+
+
 def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _chunk_cases(gen, dev, randn, t: int, n_exp: int, k: int, d: int, f: int,
+                 tag: str = ""):
+    """The one-peer EP leg's kernel cases for one FCDA chunk of ``t``
+    tokens routed top-``k`` over ``n_exp`` experts of width ``d`` x ``f``
+    (``_routed_chunk``'s layout), ``tag`` before each label.  Returns
+    (cases: name -> list of (label, kernel fn, plain fn, fp32 inputs,
+    library fn or None, bytes, flops, fp32 tolerance: 0 for bit-equality in
+    both dtypes), the layout's tensors)."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.dispatch import invert_slots
+    from repro_torch.kernels import dispatch_cuda as dc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
+
+    up, plan, R = _routed_chunk(gen, dev, t, n_exp, k)
+    rows = t * k
+    live = int(plan.total_rows)                   # rows this run's data fills
+    used = torch.unique(plan.block_to_expert[:live // BLOCK_M]).numel()
+    send_pos = invert_slots(up.send_slots, rows)
+    send_src = torch.where(send_pos >= 0, send_pos // k, -1).to(torch.int32)
+    recv_pos = invert_slots(plan.slots, R)
+    recv_src = torch.where(recv_pos >= 0, recv_pos, -1).to(torch.int32)
+    weights = torch.rand((t, k), generator=gen, device=dev)
+    if k > 1:
+        # top-k softmax weights sum to 1; a top-1 router's weight is its
+        # gate (Llama-4's sigmoid), left as drawn
+        weights = weights / weights.sum(-1, keepdim=True)
+    # the combine backward's scatter: each ragged row a slot weight, rows
+    # past the routed load and padding rows of a block dead
+    wrow = torch.rand(R, generator=gen, device=dev)
+    recv_read = int(((recv_src >= 0) & (torch.arange(R, device=dev) < live)).sum())
+
+    w1 = randn((n_exp, d, f), d ** -0.5)
+    w3 = randn((n_exp, d, f), d ** -0.5)
+    w2 = randn((n_exp, f, d), f ** -0.5)
+    x_chunk = randn((t, d))
+    x_rows = randn((rows, d))
+    buf = ref.scatter_rows_ref(x_rows, recv_src, plan.total_rows)   # (R, d)
+    h = randn((R, f)) * (torch.arange(R, device=dev) < live)[:, None]
+    b2e, total = plan.block_to_expert, plan.total_rows
+    wslot = torch.ones(R, device=dev)
+    el = 2                                     # bf16 bytes per element
+    # the ragged layout as a grouped GEMM's group ends: each expert's live
+    # rows lie in one run of row blocks, in ascending expert order
+    live_b2e = b2e[:live // BLOCK_M].long()
+    if not bool((live_b2e[1:] >= live_b2e[:-1]).all()):
+        raise SystemExit("the ragged plan's row blocks are not in expert order")
+    offs = (torch.bincount(live_b2e, minlength=n_exp).cumsum(0) * BLOCK_M).to(torch.int32)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None:
+        print(f"torch {torch.__version__} has no torch._grouped_mm: ragged_matmul "
+              f"has no one-call yardstick here", flush=True)
+
+    cases = {
+        "scatter_rows": [
+            (f"{tag}R={rows} T={t} d={d}", dc.scatter_rows,
+             ref.scatter_rows_ref, (x_chunk, send_src, rows),
+             # every row of the send buffer is live here, so index_select of
+             # the source rows is the same function on these inputs
+             lambda x, src, _: torch.index_select(x, 0, src),
+             # each of the T source rows read once, the R rows written, the
+             # row map read
+             el * (t + rows) * d + 4 * rows, 0, 0.0),
+            (f"{tag}R={R} T={rows} d={d}, slot weights, {recv_read} rows live "
+             f"(combine backward)", dc.scatter_rows, ref.scatter_rows_ref,
+             (x_rows, recv_src, total, wrow),
+             None,                 # no one PyTorch call writes the zeros and the scale
+             # the live rows read, every row written, the row map and the
+             # weights read; one multiply per live element
+             el * (recv_read + R) * d + (4 + el) * R, recv_read * d, 0.0)],
+        "gather_combine": [
+            (f"{tag}T={t} K={k} d={d} (EP combine)", dc.gather_combine,
+             ref.gather_combine_ref,
+             (x_rows, up.send_slots, weights),
+             # every slot is live at one peer: a weighted sum bag of K rows
+             lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
+                                                    per_sample_weights=w),
+             el * (t * k + t) * d, 2 * t * k * d, 1e-6),
+            (f"{tag}T={rows} K=1 d={d} (fused backward dx)", dc.gather_combine,
+             ref.gather_combine_ref, (buf, plan.slots),
+             # every received row is live and K = 1: a row gather
+             lambda buf_, slots: torch.index_select(buf_, 0, slots[:, 0]),
+             el * 2 * rows * d, 0, 0.0)],
+        "ragged_matmul": [
+            (f"{tag}({R}, {d}) @ w1 ({d}, {f})", ragged_matmul,
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+             (buf, w1, b2e, total, BLOCK_M),
+             # the live rows as groups of a grouped GEMM (no rows past them)
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
+             el * (live * d + used * d * f + R * f), 2 * live * d * f, 1e-4),
+            (f"{tag}({R}, {f}) @ w1^T ({f}, {d})",
+             lambda a, w, *r: ragged_matmul(a, w, *r, transpose_w=True),
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w.transpose(1, 2), *r[:2]),
+             (h, w1, b2e, total, BLOCK_M),
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w.transpose(1, 2),
+                                                         offs=offs)),
+             el * (live * f + used * d * f + R * d), 2 * live * d * f, 1e-4),
+            (f"{tag}({R}, {f}) @ w2 ({f}, {d})", ragged_matmul,
+             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
+             (h, w2, b2e, total, BLOCK_M),
+             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
+             el * (live * f + used * f * d + R * d), 2 * live * d * f, 1e-4)],
+        "ragged_swiglu": [(
+            f"{tag}({R}, {d}) @ w1, w3 ({d}, {f})", ragged_swiglu,
+            lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
+            (buf, w1, w3, b2e, total, BLOCK_M),
+            None,                      # no one PyTorch call computes it
+            el * (live * d + 2 * used * d * f + R * f), 2 * 2 * live * d * f, 1e-4)],
+        "fused_moe": [(
+            f"{tag}T={rows} R={R} bm={BLOCK_M} E={n_exp} d={d} f={f}", fused_moe,
+            lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
+                x, a, b, c, src, ws, bb, tot),
+            (x_rows, w1, w3, w2, recv_src, wslot, total, b2e), None,
+            el * (2 * rows * d + 3 * used * d * f), 3 * 2 * live * d * f, 1e-4)],
+    }
+    print(f"{tag}chunk routing: {live} of {R} ragged rows live, {used} experts used",
+          flush=True)
+    lay = types.SimpleNamespace(w1=w1, w3=w3, w2=w2, weights=weights, buf=buf, h=h,
+                                b2e=b2e, total=total, live=live, offs=offs)
+    return cases, lay
+
+
+def _run_cases(cases: dict) -> dict:
+    """Each case's kernel against its plain version in fp32 and bf16 (the
+    dispatch kernels bit for bit), the Hopper kernels and scatter_rows
+    relaunched, then timed beside the plain version, the library yardstick
+    where there is one, and the bound.  Returns {name: [row, ...]}."""
+    import torch
+    out = {}
+    for name, shape_cases in cases.items():
+        shapes = out.setdefault(name, [])
+        for label, fn, plain, args32, library, nbytes, flops, tol32 in shape_cases:
+            argsb = tuple(a.bfloat16() if torch.is_tensor(a) and a.is_floating_point()
+                          else a for a in args32)
+            got32, want32 = fn(*args32), plain(*args32)
+            gotb, wantb = fn(*argsb), plain(*argsb)
+            torch.cuda.synchronize()
+            err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
+            if tol32 == 0.0:
+                ok = torch.equal(got32, want32) and torch.equal(gotb, wantb)
+            else:
+                ok = _close(got32, want32, tol32) and _close(gotb, wantb, TOL_BF16)
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version at {label}: "
+                                 f"err bf16 {errb:.3e} f32 {err32:.3e}")
+            if name in ("ragged_matmul", "ragged_swiglu", "fused_moe", "scatter_rows"):
+                repeat_check(name, label, lambda: fn(*argsb), gotb)
+            iters = 3 if flops > 1e11 else 10
+            ms, host_ms, _ = device_ms(rotated(fn, argsb, nbytes), iters, kernel_call=True)
+            plain_ms, plain_host, plain_note = device_ms(rotated(plain, argsb, nbytes), iters)
+            lib_ms = lib_host = lib_err = None
+            lib_note = ""
+            if library is not None:
+                try:
+                    lib_out = library(*argsb)
+                except (RuntimeError, NotImplementedError) as exc:
+                    # a yardstick this PyTorch build does not offer at these
+                    # inputs: reported, and the kernel's checks go on
+                    print(f"{name} {label}: library call refused: "
+                          f"{str(exc).splitlines()[0][:200]}", flush=True)
+                else:
+                    # the yardstick must compute the same function (on the
+                    # rows it returns)
+                    lib_want = wantb[:lib_out.shape[0]]
+                    lib_err = _max_err(lib_out, lib_want)
+                    if not _close(lib_out, lib_want, TOL_BF16):
+                        raise SystemExit(f"{name}'s library yardstick disagrees with "
+                                         f"the plain version at {label}: {lib_err:.3e}")
+                    del lib_out, lib_want
+                    lib_ms, lib_host, lib_note = device_ms(rotated(library, argsb, nbytes),
+                                                           iters)
+            bms, by = _bound(nbytes, flops)
+            row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32,
+                   "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": lib_ms}
+            shapes.append(row)
+            print(f"{name} {label}: ok err bf16 {errb:.3e} f32 {err32:.3e} | device ms: "
+                  f"kernel {ms:.4f}, plain {plain_ms:.4f}{plain_note}, library "
+                  f"{_fmt(lib_ms)}{lib_note}"
+                  f"{'' if lib_err is None else f' (err {lib_err:.3e})'} | host ms per "
+                  f"call: kernel {host_ms:.4f}, plain {plain_host:.4f}, library "
+                  f"{_fmt(lib_host)} | bound {bms:.4f} ms ({by}), "
+                  f"{100 * bms / ms:.1f}% of bound", flush=True)
+            del got32, want32, gotb, wantb, argsb
+    return out
 
 
 def train_kernels_phase() -> dict:
@@ -584,116 +826,13 @@ def train_kernels_phase() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = torch.device("cuda")
-    up, plan, R = _routed_chunk(gen, dev)
-    rows = T_CHUNK * TOP_K
-    live = int(plan.total_rows)                   # rows this run's data fills
-    used = torch.unique(plan.block_to_expert[:live // BLOCK_M]).numel()
-    send_pos = invert_slots(up.send_slots, rows)
-    send_src = torch.where(send_pos >= 0, send_pos // TOP_K, -1).to(torch.int32)
-    recv_pos = invert_slots(plan.slots, R)
-    recv_src = torch.where(recv_pos >= 0, recv_pos, -1).to(torch.int32)
-    weights = torch.rand((T_CHUNK, TOP_K), generator=gen, device=dev)
-    weights = weights / weights.sum(-1, keepdim=True)
-    # the combine backward's scatter: each ragged row a slot weight, rows
-    # past the routed load and padding rows of a block dead
-    wrow = torch.rand(R, generator=gen, device=dev)
-    recv_read = int(((recv_src >= 0) & (torch.arange(R, device=dev) < live)).sum())
 
     def randn(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
-    w1 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
-    w3 = randn((E, D_MODEL, D_FF), D_MODEL ** -0.5)
-    w2 = randn((E, D_FF, D_MODEL), D_FF ** -0.5)
-    x_chunk = randn((T_CHUNK, D_MODEL))
-    x_rows = randn((rows, D_MODEL))
-    buf = ref.scatter_rows_ref(x_rows, recv_src, plan.total_rows)   # (R, d)
-    h = randn((R, D_FF)) * (torch.arange(R, device=dev) < live)[:, None]
-    b2e, total = plan.block_to_expert, plan.total_rows
-    wslot = torch.ones(R, device=dev)
-    el = 2                                     # bf16 bytes per element
-    # the ragged layout as a grouped GEMM's group ends: each expert's live
-    # rows lie in one run of row blocks, in ascending expert order
-    live_b2e = b2e[:live // BLOCK_M].long()
-    if not bool((live_b2e[1:] >= live_b2e[:-1]).all()):
-        raise SystemExit("the ragged plan's row blocks are not in expert order")
-    offs = (torch.bincount(live_b2e, minlength=E).cumsum(0) * BLOCK_M).to(torch.int32)
-    grouped_mm = getattr(torch, "_grouped_mm", None)
-    if grouped_mm is None:
-        print(f"torch {torch.__version__} has no torch._grouped_mm: ragged_matmul "
-              f"has no one-call yardstick here", flush=True)
-
-    # name -> list of shape cases; each case: (label, kernel fn, plain fn,
-    # fp32 inputs, library fn or None, bytes, flops, tolerance fp32: 0 for
-    # bit-equality in both dtypes)
-    cases = {
-        "scatter_rows": [
-            (f"R={rows} T={T_CHUNK} d={D_MODEL}", dc.scatter_rows,
-             ref.scatter_rows_ref, (x_chunk, send_src, rows),
-             # every row of the send buffer is live here, so index_select of
-             # the source rows is the same function on these inputs
-             lambda x, src, _: torch.index_select(x, 0, src),
-             # each of the T source rows read once, the R rows written, the
-             # row map read
-             el * (T_CHUNK + rows) * D_MODEL + 4 * rows, 0, 0.0),
-            (f"R={R} T={rows} d={D_MODEL}, slot weights, {recv_read} rows live "
-             f"(combine backward)", dc.scatter_rows, ref.scatter_rows_ref,
-             (x_rows, recv_src, total, wrow),
-             None,                 # no one PyTorch call writes the zeros and the scale
-             # the live rows read, every row written, the row map and the
-             # weights read; one multiply per live element
-             el * (recv_read + R) * D_MODEL + (4 + el) * R, recv_read * D_MODEL, 0.0)],
-        "gather_combine": [
-            (f"T={T_CHUNK} K={TOP_K} d={D_MODEL} (EP combine)", dc.gather_combine,
-             ref.gather_combine_ref,
-             (x_rows, up.send_slots, weights),
-             # every slot is live at one peer: a weighted sum bag of K rows
-             lambda buf_, slots, w: F.embedding_bag(slots, buf_, mode="sum",
-                                                    per_sample_weights=w),
-             el * (T_CHUNK * TOP_K + T_CHUNK) * D_MODEL, 2 * T_CHUNK * TOP_K * D_MODEL,
-             1e-6),
-            (f"T={rows} K=1 d={D_MODEL} (fused backward dx)", dc.gather_combine,
-             ref.gather_combine_ref, (buf, plan.slots),
-             # every received row is live and K = 1: a row gather
-             lambda buf_, slots: torch.index_select(buf_, 0, slots[:, 0]),
-             el * 2 * rows * D_MODEL, 0, 0.0)],
-        "ragged_matmul": [
-            (f"({R}, {D_MODEL}) @ w1 ({D_MODEL}, {D_FF})", ragged_matmul,
-             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
-             (buf, w1, b2e, total, BLOCK_M),
-             # the live rows as groups of a grouped GEMM (no rows past them)
-             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
-             el * (live * D_MODEL + used * D_MODEL * D_FF + R * D_FF),
-             2 * live * D_MODEL * D_FF, 1e-4),
-            (f"({R}, {D_FF}) @ w1^T ({D_FF}, {D_MODEL})",
-             lambda a, w, *r: ragged_matmul(a, w, *r, transpose_w=True),
-             lambda a, w, *r: ref.ragged_matmul_ref(a, w.transpose(1, 2), *r[:2]),
-             (h, w1, b2e, total, BLOCK_M),
-             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w.transpose(1, 2),
-                                                         offs=offs)),
-             el * (live * D_FF + used * D_MODEL * D_FF + R * D_MODEL),
-             2 * live * D_MODEL * D_FF, 1e-4),
-            (f"({R}, {D_FF}) @ w2 ({D_FF}, {D_MODEL})", ragged_matmul,
-             lambda a, w, *r: ref.ragged_matmul_ref(a, w, *r[:2]),
-             (h, w2, b2e, total, BLOCK_M),
-             grouped_mm and (lambda a, w, *_: grouped_mm(a[:live], w, offs=offs)),
-             el * (live * D_FF + used * D_FF * D_MODEL + R * D_MODEL),
-             2 * live * D_MODEL * D_FF, 1e-4)],
-        "ragged_swiglu": [(
-            f"({R}, {D_MODEL}) @ w1, w3 ({D_MODEL}, {D_FF})", ragged_swiglu,
-            lambda a, u, v, *r: ref.ragged_swiglu_ref(a, u, v, *r[:2]),
-            (buf, w1, w3, b2e, total, BLOCK_M),
-            None,                      # no one PyTorch call computes it
-            el * (live * D_MODEL + 2 * used * D_MODEL * D_FF + R * D_FF),
-            2 * 2 * live * D_MODEL * D_FF, 1e-4)],
-        "fused_moe": [(
-            f"T={rows} R={R} bm={BLOCK_M} E={E} d={D_MODEL} f={D_FF}", fused_moe,
-            lambda x, a, b, c, src, ws, tot, bb: ref.fused_moe_rows_ref(
-                x, a, b, c, src, ws, bb, tot),
-            (x_rows, w1, w3, w2, recv_src, wslot, total, b2e), None,
-            el * (2 * rows * D_MODEL + 3 * used * D_MODEL * D_FF),
-            3 * 2 * live * D_MODEL * D_FF, 1e-4)],
-    }
+    cases, lay = _chunk_cases(gen, dev, randn, T_CHUNK, E, TOP_K, D_MODEL, D_FF)
+    w1, w3, w2, weights = lay.w1, lay.w3, lay.w2, lay.weights
+    el = 2
     # the EP path's layouts: rank 0's received rows from 2 source blocks with
     # -1 gaps, over 4 local experts' weights (phase "train (EP, 2 ranks)")
     # and over 5 weight slots under a placement with a replica slot per rank
@@ -751,84 +890,25 @@ def train_kernels_phase() -> dict:
             3 * 2 * ep_live * D_MODEL * D_FF, 1e-4))
         layouts.append((ep_buf, ep_b2e, ep_total, ep_live, ep_R, ep_e, ep_label))
         del ep_x, ep_w
-    replaces = {"scatter_rows": "src/repro/kernels/dispatch_pallas.py:63",
-                "gather_combine": "src/repro/kernels/dispatch_pallas.py:127",
-                "ragged_matmul": "src/repro/kernels/ragged_mlp.py:99",
-                "ragged_swiglu": "src/repro/kernels/ragged_mlp.py:131",
-                "fused_moe": "src/repro/kernels/fused_moe.py:105"}
     sources = {"scatter_rows": "dispatch.cu", "gather_combine": "dispatch.cu",
                "ragged_matmul": "ragged_mlp.cu", "ragged_swiglu": "ragged_mlp.cu",
                "fused_moe": "fused_moe.cu"}
-    print(f"chunk routing: {live} of {R} ragged rows live, {used} experts used",
-          flush=True)
     entries = {}
-    for name, shape_cases in cases.items():
-        shapes = []
-        for label, fn, plain, args32, library, nbytes, flops, tol32 in shape_cases:
-            argsb = tuple(a.bfloat16() if torch.is_tensor(a) and a.is_floating_point()
-                          else a for a in args32)
-            got32, want32 = fn(*args32), plain(*args32)
-            gotb, wantb = fn(*argsb), plain(*argsb)
-            torch.cuda.synchronize()
-            err32, errb = _max_err(got32, want32), _max_err(gotb, wantb)
-            if tol32 == 0.0:
-                ok = torch.equal(got32, want32) and torch.equal(gotb, wantb)
-            else:
-                ok = _close(got32, want32, tol32) and _close(gotb, wantb, TOL_BF16)
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version at {label}: "
-                                 f"err bf16 {errb:.3e} f32 {err32:.3e}")
-            if name in ("ragged_matmul", "ragged_swiglu", "fused_moe", "scatter_rows"):
-                repeat_check(name, label, lambda: fn(*argsb), gotb)
-            iters = 3 if flops > 1e11 else 10
-            ms, host_ms, _ = device_ms(rotated(fn, argsb, nbytes), iters, kernel_call=True)
-            plain_ms, plain_host, plain_note = device_ms(rotated(plain, argsb, nbytes), iters)
-            lib_ms = lib_host = lib_err = None
-            lib_note = ""
-            if library is not None:
-                try:
-                    lib_out = library(*argsb)
-                except (RuntimeError, NotImplementedError) as exc:
-                    # a yardstick this PyTorch build does not offer at these
-                    # inputs: reported, and the kernel's checks go on
-                    print(f"{name} {label}: library call refused: "
-                          f"{str(exc).splitlines()[0][:200]}", flush=True)
-                else:
-                    # the yardstick must compute the same function (on the
-                    # rows it returns)
-                    lib_want = wantb[:lib_out.shape[0]]
-                    lib_err = _max_err(lib_out, lib_want)
-                    if not _close(lib_out, lib_want, TOL_BF16):
-                        raise SystemExit(f"{name}'s library yardstick disagrees with "
-                                         f"the plain version at {label}: {lib_err:.3e}")
-                    del lib_out, lib_want
-                    lib_ms, lib_host, lib_note = device_ms(rotated(library, argsb, nbytes),
-                                                           iters)
-            bms, by = _bound(nbytes, flops)
-            row = {"shape": label, "max_abs_err": errb, "max_abs_err_f32": err32,
-                   "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms,
-                   "bound_by": by, "library_ms": lib_ms}
-            shapes.append(row)
-            print(f"{name} {label}: ok err bf16 {errb:.3e} f32 {err32:.3e} | device ms: "
-                  f"kernel {ms:.4f}, plain {plain_ms:.4f}{plain_note}, library "
-                  f"{_fmt(lib_ms)}{lib_note}"
-                  f"{'' if lib_err is None else f' (err {lib_err:.3e})'} | host ms per "
-                  f"call: kernel {host_ms:.4f}, plain {plain_host:.4f}, library "
-                  f"{_fmt(lib_host)} | bound {bms:.4f} ms ({by}), "
-                  f"{100 * bms / ms:.1f}% of bound", flush=True)
-            del got32, want32, gotb, wantb, argsb
+    for name, shapes in _run_cases(cases).items():
         head = shapes[0]
         entries[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": 0,
+            "replaces": REPLACES[name], "launches": 0,
             **{k: head[k] for k in ROW_KEYS},
             "shapes": shapes,
         }
-    del w1, w3, w2, x_rows, x_chunk, wrow
+    del cases, w1, w3, w2, weights
+    lay.w1 = lay.w3 = lay.w2 = lay.weights = None
     torch.cuda.empty_cache()
-    entries["segment_outer"] = weight_grad_kernel(buf, h, b2e, total, live, offs, gen)
-    del buf, h
+    entries["segment_outer"] = weight_grad_kernel(lay.buf, lay.h, lay.b2e, lay.total,
+                                                  lay.live, lay.offs, gen)
+    del lay
     torch.cuda.empty_cache()
     while layouts:
         ep_buf, ep_b2e, ep_total, ep_live, ep_R, ep_e, ep_label = layouts.pop(0)
@@ -841,6 +921,45 @@ def train_kernels_phase() -> dict:
         del ep_buf, ep_h
         torch.cuda.empty_cache()
     return entries
+
+
+SCOUT = "llama4-scout-17b-a16e"
+SCOUT_KERNELS = ("scatter_rows", "gather_combine", "ragged_matmul", "fused_moe")
+
+
+def scout_kernels(entries: dict, t_chunk: int) -> None:
+    """The fused leg's kernels at Llama-4-Scout's MoE shapes (16 experts
+    top-1, d_model 5120, d_ff 8192) and the ``t_chunk``-token chunk the
+    train (families) run's MACT chose, at one peer as it ran: each against
+    its plain version in fp32 and bf16, relaunched, timed beside the plain
+    version, the library yardstick and the bound; the weight gradient at
+    the same layout.  Rows join each kernel's ``shapes``."""
+    phase("kernels (Llama-4-Scout)")
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SCOUT)
+    n_exp, k, d, f = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = torch.device("cuda")
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    tag = "Llama-4-Scout "
+    cases, lay = _chunk_cases(gen, dev, randn, t_chunk, n_exp, k, d, f, tag)
+    cases = {name: cases[name] for name in SCOUT_KERNELS}
+    for name, shapes in _run_cases(cases).items():
+        entries[name]["shapes"] += [{"model": SCOUT, **row} for row in shapes]
+    del cases
+    lay.w1 = lay.w3 = lay.w2 = lay.weights = None
+    torch.cuda.empty_cache()
+    entries["segment_outer"]["shapes"] += [
+        {"model": SCOUT, **row} for row in weight_grad_kernel(
+            lay.buf, lay.h, lay.b2e, lay.total, lay.live, lay.offs, gen,
+            n_experts=n_exp, tag=tag)["shapes"]]
+    del lay
+    torch.cuda.empty_cache()
 
 
 def _wgrad_close(got, want, s=None) -> bool:
@@ -875,16 +994,17 @@ def weight_grad_kernel(buf, h, b2e, total, live: int, offs, gen, n_experts: int 
     from repro_torch.kernels.weight_grad import segment_outer
 
     dev = buf.device
-    R = buf.shape[0]
+    R, d = buf.shape
+    f = h.shape[1]
     liverows = (torch.arange(R, device=dev) < live)[:, None]
-    g_buf = torch.randn((R, D_MODEL), generator=gen, device=dev) * liverows
+    g_buf = torch.randn((R, d), generator=gen, device=dev) * liverows
     grouped_mm = getattr(torch, "_grouped_mm", None)
     el = 2
     shapes = []
     # (label, a, b, out (E, K, N), accumulate)
-    cases = [(tag + "dw1 = bufᵀ @ dh1, written", buf, h, (n_experts, D_MODEL, D_FF), False),
-             (tag + "dw1 = bufᵀ @ dh1, added", buf, h, (n_experts, D_MODEL, D_FF), True),
-             (tag + "dw2 = aᵀ @ g_buf, added", h, g_buf, (n_experts, D_FF, D_MODEL), True)]
+    cases = [(tag + "dw1 = bufᵀ @ dh1, written", buf, h, (n_experts, d, f), False),
+             (tag + "dw1 = bufᵀ @ dh1, added", buf, h, (n_experts, d, f), True),
+             (tag + "dw2 = aᵀ @ g_buf, added", h, g_buf, (n_experts, f, d), True)]
     for label, a32, b32, oshape, acc in cases:
         K, N = oshape[1], oshape[2]
         # on the path the buffer holds an earlier chunk's gradient, of the new
@@ -1077,6 +1197,22 @@ SERVE_GROUPS = {"grouped_swiglu": ("grouped_wgmma<2>", "grouped_kernel<2>"),
                 "grouped_matmul": ("grouped_wgmma<1>", "grouped_kernel<1>")}
 
 
+def device_kernels(prof) -> list:
+    """[(name, launches, device us)] of a finished torch.profiler run's
+    device activities (kernels, copies, sets), summed from its raw Kineto
+    events.  key_averages() gives the same sums but first builds every host
+    op's event tree in Python, ~17 s per 200k events on a host core: most
+    of a profiled eager serve run's time."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = out.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e3
+    return [(k, n, us) for k, (n, us) in out.items() if us > 0]
+
+
 def profile_step(trainer, state) -> None:
     """One more, warm step under the profiler: the step-time breakdown."""
     import torch
@@ -1091,6 +1227,11 @@ def profile_step(trainer, state) -> None:
     rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(r[2] for r in rows)
+    # the serving phases sum the raw events instead: they must agree here
+    raw_us = sum(r[2] for r in device_kernels(prof))
+    if abs(raw_us - device_us) > 0.01 * device_us:
+        raise SystemExit(f"device_kernels reads {raw_us / 1e3:.3f} ms of device time "
+                         f"where key_averages reads {device_us / 1e3:.3f}")
     by_group = {g: sum(r[2] for r in rows if any(k in r[0] for k in keys))
                 for g, keys in STEP_GROUPS.items()}
     print(f"profiled warm step: wall {wall_us / 1e3:.1f} ms, device busy "
@@ -1543,7 +1684,7 @@ def train_ep_phase(one_peer_ce: float) -> dict:
 # layer 0's router zeroed after init, so every score ties at step 1 and top-2
 # (a stable sort, as lax.top_k) sends every token to experts 0 and 1; AdamW
 # moves the router from there
-ADAPT_STEPS = 5
+ADAPT_STEPS = 3
 ADAPT_MIN_IMBALANCE = 1.5
 ADAPT_TIMEOUT_S = 900
 _STEPS_AT = TRAIN_ARGS.index("--steps") + 1
@@ -2341,7 +2482,6 @@ def profile_phase(served: dict) -> None:
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.serving import engine
@@ -2368,8 +2508,7 @@ def profile_phase(served: dict) -> None:
     for eager in (False, True):
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         r = _serve_run(modes[eager], params, profiler=prof)
-        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows = device_kernels(prof)
         device_us = sum(x[2] for x in rows)
         by_kernel = {g: sum(x[2] for x in rows if any(k in x[0] for k in keys))
                      for g, keys in SERVE_GROUPS.items()}
@@ -3009,12 +3148,10 @@ def _state_leaves(sched) -> list:
 
 def _idle_share(args, params) -> tuple:
     """One run under torch.profiler: (run, device busy ms, idle share %)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     r = _serve_run(args, params, profiler=prof)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(us for _, _, us in device_kernels(prof)) / 1e3
     return r, busy, 100 - 100 * busy / (1e3 * r["metrics"]["elapsed_s"])
 
 
@@ -3248,6 +3385,439 @@ def hybrid_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder and patch inputs, and training on every family
+# ---------------------------------------------------------------------------
+
+ENCDEC_GEN = 32            # greedy decode steps a request
+ENCDEC_PROFILED = 8        # steps of a profiled run: the profiler's own cost
+                           # grows with the events it records
+WHISPER_PROMPTS = (16, 32, 48, 64)
+VLM_LAYERS, VLM_PROMPT = 8, 32
+ENCDEC_PAGE = 16
+# (label, arch, layers (0 = whole), seq_len, global batch, EP fused leg)
+FAMILY_RUNS = (("Whisper-small", "whisper-small", 0, 448, 4, False),
+               ("InternVL2-76B", "internvl2-76b", 2, 2048, 2, False),
+               ("Mamba2-130m", "mamba2-130m", 0, 2048, 2, False),
+               ("Jamba-1.5-Large", "jamba-1.5-large-398b", 1, 2048, 2, False),
+               ("Llama-4-Scout-17B-16E", "llama4-scout-17b-a16e", 1, 1024, 2, True))
+FAMILY_STEPS = 3
+
+
+def _cat_rows(caches: list) -> dict:
+    """One decode cache of the rows of ``caches`` (each a B=1 cache)."""
+    import torch
+    from repro_torch.serving import engine
+    cols = zip(*[engine.leaves(c) for c in caches])
+    return engine._fill(caches[0], iter([torch.cat(list(ts)) for ts in cols]))
+
+
+def _greedy(step, params, cache, logits, n: int, profiler=None) -> dict:
+    """``n`` greedy decode steps of ``step`` from ``cache`` and the
+    prefill's ``logits``: tokens, every step's logits (copied off the
+    graph's output buffer), ms a pass, and the device busy ms when
+    ``profiler`` records the run."""
+    import contextlib
+
+    import torch
+    nxt = logits[:, -1].argmax(-1)
+    toks, out = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiler if profiler is not None else contextlib.nullcontext():
+        for _ in range(n):
+            toks.append(nxt)
+            lg, cache = step(params, cache, nxt[:, None])
+            out.append(lg.clone())
+            nxt = lg[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"tokens": torch.stack(toks, 1).tolist(), "logits": out,
+           "ms": 1e3 * wall / n, "tok_s": len(toks[0]) * n / wall}
+    if profiler is not None:
+        run["busy_ms"] = sum(us for _, _, us in device_kernels(profiler)) / 1e3 / n
+    return run
+
+
+def _encdec_turns(label: str, card: str, params, cfg, ctx, cache, logits,
+                  model_bytes: float) -> dict:
+    """Greedy decode of ``cache`` eagerly and through the decode graph in
+    turns (eager, graph, eager, graph, then one profiled run of
+    ``ENCDEC_PROFILED`` steps each way):
+    token streams equal and every step's logits bit-equal across the runs;
+    a warm graph run captures nothing.  Returns the last unprofiled graph
+    run."""
+    import torch
+    from repro_torch.serving import engine
+    from torch.profiler import ProfilerActivity, profile
+
+    step = engine.get_decode_step(cfg, ctx)
+    runs = []
+    for graph, prof in ((False, False), (True, False), (False, False), (True, False),
+                        (False, True), (True, True)):
+        torch.cuda.reset_peak_memory_stats()
+        holder = engine._Holder()
+        c = engine.clone_cache(cache)
+        fn = step.eager
+        if graph:
+            c, fn = step.static_cache(c, holder), step
+        before = step.captures
+        p = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+             if prof else None)
+        r = _greedy(fn, params, c, logits, ENCDEC_PROFILED if prof else ENCDEC_GEN, p)
+        r.update(graph=graph, captures=step.captures - before,
+                 peak=torch.cuda.max_memory_allocated())
+        runs.append(r)
+        del c, holder
+    first = runs[0]
+    for r in runs:
+        n = len(r["logits"])                 # a profiled run's first steps
+        if [t[:n] for t in first["tokens"]] != r["tokens"] or any(
+                not torch.equal(a, b) for a, b in zip(r["logits"], first["logits"])):
+            raise SystemExit(f"{label}: a {'graph' if r['graph'] else 'eager'} run's "
+                             f"streams or logits differ from the first eager run's")
+        if r["graph"] and r is not runs[1] and r["captures"]:
+            raise SystemExit(f"{label}: a warm graph run captured a graph")
+    # the profiler slows the host many times over, so a profiled run's own
+    # wall clock overstates idle time: its device ms a pass is held against
+    # the same mode's last warm unprofiled run's ms a pass
+    warm = {r["graph"]: r for r in runs if "busy_ms" not in r}
+    for r in runs:
+        idle = ""
+        if "busy_ms" in r:
+            ms = warm[r["graph"]]["ms"]
+            idle = (f", device busy {r['busy_ms']:.3f} ms a pass (profiled), idle "
+                    f"{100 - 100 * r['busy_ms'] / ms:.1f}% of the warm run's {ms:.3f} ms")
+        print(f"{card}: {label} {'graph' if r['graph'] else 'eager'} decode"
+              f"{' (capture included)' if r['captures'] else ''}: "
+              f"{r['ms']:.3f} ms a pass ({len(r['tokens'])} rows), "
+              f"{r['tok_s']:.1f} tok/s{idle}, max_memory_allocated "
+              f"{r['peak'] / 1e9:.3f} GB against the model's weights + caches "
+              f"{model_bytes / 1e9:.3f} GB", flush=True)
+    print(f"{card}: {label}: streams equal and every step's logits bit-equal over "
+          f"{len(runs)} runs, eager and graph in turns; warm graph runs captured "
+          f"no graph", flush=True)
+    return runs[3]
+
+
+def _release() -> None:
+    """Free the graphs, their static caches and the card's cached blocks
+    once a model's weights are dropped."""
+    import gc
+
+    import torch
+    from repro_torch.serving import engine
+    engine.clear_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _param_bytes(params) -> int:
+    from repro_torch.serving import engine
+    return sum(t.numel() * t.element_size() for t in engine.leaves(params))
+
+
+def encdec_phase(card: str) -> None:
+    """Full-width Whisper-small whole (12 encoder + 12 decoder layers) and
+    InternVL2-76B's backbone cut to 8 of its 80 layers, bf16 weights from a
+    seed: prefill and greedy decode eager and through the decode graph in
+    turns; Whisper's requests also from 16-token pages, every logits row
+    bit-equal to the slot map's."""
+    phase("serve (enc-dec + VLM)")
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.moe import DistContext
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    from repro_torch.serving.paged_cache import CROSS, PagedCachePool
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    ctx = DistContext(device=dev)
+
+    # (a) Whisper-small: 4 requests of 1500 frames and 16-64 prompt tokens,
+    # each prefilled alone, decoded together (one row a request)
+    cfg = get_config("whisper-small")
+    params = transformer.init_params(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    rng = np.random.default_rng(0)
+    cache_len = max(WHISPER_PROMPTS) + ENCDEC_GEN
+    caches, firsts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for S in WHISPER_PROMPTS:
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                                           device=dev),
+                 "frames": torch.as_tensor(rng.standard_normal(
+                     (1, cfg.encoder_seq, cfg.d_model)).astype(np.float32), device=dev)}
+        logits, cache = engine.prefill(params, cfg, ctx, batch, cache_len)
+        caches.append(engine.clone_cache(cache))
+        firsts.append(logits.clone())
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache, first = _cat_rows(caches), torch.cat(firsts)
+    if not bool(torch.isfinite(first).all()):
+        raise SystemExit("Whisper-small: non-finite prefill logits")
+    cross_bytes = sum(layer[n].numel() * layer[n].element_size()
+                      for layer in cache["layers"] for n in CROSS)
+    weights = _param_bytes(params)
+    modeled = mm.decode_cache_bytes(cfg, cache_len, 4) * len(WHISPER_PROMPTS)
+    print(f"{card}: Whisper-small whole: {weights / 1e9:.3f} GB of bf16 weights "
+          f"(memory model {mm.serve_weight_bytes(cfg) / 1e9:.3f} GB); 4 prefills "
+          f"(1500 frames, prompts {list(WHISPER_PROMPTS)}) {prefill_s:.2f} s cold; fp32 "
+          f"cache of 4 requests {_fmt_bytes(sum(t.numel() * 4 for t in engine.leaves(cache)))}, "
+          f"of it cross K/V {cross_bytes / 1e6:.1f} MB; decode_cache_bytes at fp32 "
+          f"{modeled / 1e6:.1f} MB", flush=True)
+    graph = _encdec_turns("Whisper-small", card, params, cfg, ctx, cache, first,
+                          weights + modeled)
+
+    # the same requests from 16-token pages: cross K/V in each request's
+    # state block, every logits row bit-equal to the slot map's graph run
+    pool = PagedCachePool(params, cfg, ctx, len(WHISPER_PROMPTS), cache_len,
+                          ENCDEC_PAGE)
+    rps = []
+    for c, S in zip(caches, WHISPER_PROMPTS):
+        rp = pool.ops.new_request()
+        pool.install(rp, c, S)
+        rps.append(rp)
+    pos = np.asarray(WHISPER_PROMPTS, np.int64)
+    toks = np.asarray(graph["tokens"])
+    rows = 0
+    for i in range(ENCDEC_GEN):
+        if i == 1:                       # the waves after the capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for rp, p in zip(rps, pos):
+            pool.prepare_decode_write(rp, int(p))
+        got = pool.decode_wave(params, rps, pos, toks[:, i:i + 1])
+        if not torch.equal(got, graph["logits"][i]):
+            raise SystemExit(f"Whisper-small from pages: wave {i}'s logits differ "
+                             f"from the slot map's")
+        rows += got.shape[0]
+        pos = pos + 1
+    torch.cuda.synchronize()
+    paged_ms = 1e3 * (time.perf_counter() - t0) / (ENCDEC_GEN - 1)
+    kv_pool = sum(t.numel() * t.element_size() for p in pool.pools
+                  for n, t in p.items() if n in ("k", "v"))
+    cross_pool = sum(t.numel() * t.element_size() for p in pool.pools
+                     for n, t in p.items() if n in CROSS)
+    for rp in rps:
+        pool.release(rp)
+    pool.alloc.audit()
+    print(f"{card}: Whisper-small from {ENCDEC_PAGE}-token pages: all {rows} logits rows "
+          f"bit-equal to the slot map's; {paged_ms:.3f} ms a warm wave (slot map's warm "
+          f"graph {graph['ms']:.3f}); modeled (bf16) state block "
+          f"{pool.layout.state_bytes(2) / 1e6:.3f} MB a request (its cross K/V) beside "
+          f"{pool.layout.page_bytes(pool.groups[0], ENCDEC_PAGE, 2) / 1e3:.1f} KB a K/V "
+          f"page; on the card the fp32 cross K/V pools {cross_pool / 1e6:.1f} MB beside "
+          f"{kv_pool / 1e6:.1f} MB of K/V page pools", flush=True)
+    del pool, params, cache, caches, graph
+    _release()
+
+    # (b) InternVL2-76B's backbone, 8 of 80 layers: 4 requests of 256 patch
+    # embeddings ahead of a 32-token prompt, prefilled together
+    cfg = dataclasses.replace(get_config("internvl2-76b"), num_layers=VLM_LAYERS)
+    params = transformer.init_params(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    n = cfg.num_patch_tokens
+    cache_len = n + VLM_PROMPT + ENCDEC_GEN
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, VLM_PROMPT)),
+                                       device=dev),
+             "patches": torch.as_tensor(rng.standard_normal(
+                 (4, n, cfg.d_model)).astype(np.float32), device=dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(params, cfg, ctx, batch, cache_len)
+    cache, first = engine.clone_cache(cache), logits.clone()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(first).all()) or cache["pos"].tolist() != [n + VLM_PROMPT] * 4:
+        raise SystemExit("InternVL2-76B: non-finite prefill logits, or the cache does "
+                         "not count the patch positions")
+    weights = _param_bytes(params)
+    modeled = mm.decode_cache_bytes(cfg, cache_len, 4) * 4
+    print(f"{card}: InternVL2-76B, {VLM_LAYERS} of 80 layers: {weights / 1e9:.3f} GB of "
+          f"bf16 weights (memory model {mm.serve_weight_bytes(cfg) / 1e9:.3f} GB), the "
+          f"embedding and head {2 * cfg.padded_vocab * cfg.d_model * 2 / 1e9:.3f} GB; a "
+          f"batched prefill of 4 x ({n} patches + {VLM_PROMPT} tokens) {prefill_s:.2f} s "
+          f"cold; cache positions {cache['pos'].tolist()}", flush=True)
+    _encdec_turns("InternVL2-76B", card, params, cfg, ctx, cache, first,
+                  weights + modeled)
+    del params, cache
+    _release()
+    print(f"{card}: serve (enc-dec + VLM) phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _digest(params) -> list:
+    """A few values of every parameter, on the host: what a step changes."""
+    from repro_torch.optim.adamw import param_list
+    return [p.detach().reshape(-1)[:64].float().cpu() for p in param_list(params)]
+
+
+def families_phase(card: str) -> tuple:
+    """A few training steps of each family at full width through Trainer, as
+    launch/train.py builds it: finite losses and grad norms, parameters
+    changed, warm step seconds, tokens/s, the peak against the memory
+    model.  Returns the fused leg's launches (Llama-4-Scout's MoE layer) and
+    the tokens of its last step's FCDA chunk."""
+    phase("train (families)")
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.moe import DistContext
+    from repro_torch.kernels import dispatch_cuda as dc
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul
+    from repro_torch.kernels.weight_grad import segment_outer
+    from repro_torch.optim.adamw import named_params, param_list
+    from repro_torch.training.step import init_train_state
+    from repro_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe,
+                segment_outer)
+    launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    for label, arch, layers, seq, batch, fused in FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        ctx = DistContext(device=dev, moe_strategy="ep_shardmap" if fused else "auto",
+                          moe_fused=fused)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, ctx, seq_len=seq, global_batch=batch, lr=1e-3, seed=0,
+                          dtype=torch.bfloat16)
+        state = init_train_state(cfg, torch.bfloat16, dev, 0)
+        before = _digest(state.params)
+        for fn in counters:
+            fn.launches = 0
+        state = trainer.fit(FAMILY_STEPS, state)
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in counters}
+        wall = time.perf_counter() - t0
+        after = _digest(state.params)
+        names = [n for n, _ in named_params(state.params)]
+        same = [n for n, a, b in zip(names, before, after) if torch.equal(a, b)]
+        changed = len(before) - len(same)
+        n_params = sum(p.numel() for p in param_list(state.params))
+        static = mm.static_bytes(cfg, trainer.par)
+        model = f"the memory model's static {static / 1e9:.2f} GB (12 B/param)"
+        if fused:
+            last = trainer.log[-1]
+            rep = trainer.mact.memory_report(trainer.mact.history[-1]["s_pp"],
+                                             last["chunks"], last["pipeline"])
+            model = (f"MACT's static {rep['static_gb'] * 2**30 / 1e9:.2f} GB + "
+                     f"activations {rep['activation_gb'] * 2**30 / 1e9:.2f} GB")
+        for r in trainer.log:
+            print(f"{card}: {label} step {r['step']}: loss {r['loss']:.6f}, grad_norm "
+                  f"{r['grad_norm']:.4f}, schedule ({r['chunks']}, {r['pipeline']}), "
+                  f"{r['time_s']:.3f} s, {r['tgs']:.1f} tokens/s", flush=True)
+        warm = trainer.log[1:]
+        print(f"{card}: {label} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+              f"parameters, {batch} x {seq}): warm step {min(r['time_s'] for r in warm):.3f}"
+              f"-{max(r['time_s'] for r in warm):.3f} s, {max(r['tgs'] for r in warm):.1f} "
+              f"tokens/s; {changed} of {len(before)} parameters changed (a digest of "
+              f"their first 64 values; not: {same}); "
+              f"max_memory_allocated {(trainer.max_memory_allocated or 0) / 1e9:.2f} GB "
+              f"against {model}; {wall:.1f} s with the weights' build"
+              + (f"; launches {got}" if fused else ""), flush=True)
+        bad = [r for r in trainer.log
+               if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+        if bad or len(trainer.log) != FAMILY_STEPS or changed == 0:
+            raise SystemExit(f"{label}: non-finite losses or grad norms, or no "
+                             f"parameter changed: {bad}")
+        if fused and not all(got.values()):
+            raise SystemExit(f"{label}: a kernel of the fused leg never launched: {got}")
+        if fused:
+            t_chunk = seq * batch // trainer.log[-1]["chunks"]
+        for k, v in got.items():
+            launches[k] += v
+        del trainer, state, before, after
+        gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{card}: train (families) phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, t_chunk
+
+
+def _check_families() -> None:
+    """The reduced Whisper-small and InternVL2-76B in fp32, the card against
+    the CPU: prefill logits and greedy streams; then one training step of
+    every reduced config of the registry (the EP fused leg where it has MoE
+    layers), the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, registry
+    from repro_torch.core.moe import DistContext
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    from repro_torch.training.step import make_train_state
+    from repro_torch.training.trainer import Trainer
+
+    for arch in ("whisper-small", "internvl2-76b"):
+        cfg = get_config(arch).reduced()
+        cpu = transformer.init_params(cfg, device="cpu", seed=1)
+        rng = np.random.default_rng(3)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)))}
+        if cfg.encoder_layers:
+            batch["frames"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        if cfg.num_patch_tokens:
+            batch["patches"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32))
+        cache_len = 24 + cfg.num_patch_tokens + 12
+        outs = {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            ctx = DistContext(device=torch.device(dev))
+            b = _to(batch, dev)
+            logits, _ = engine.prefill(params, cfg, ctx, b, cache_len)
+            outs[dev] = (logits.cpu().clone(),
+                         engine.generate(params, cfg, ctx, b, 12, cache_len).tolist())
+        err = (outs["cpu"][0] - outs["cuda"][0]).abs().max().item()
+        same = outs["cpu"][1] == outs["cuda"][1]
+        print(f"reduced {cfg.name} fp32: prefill logits max |card - cpu| = {err:.3e}; "
+              f"greedy streams of 2 requests {'equal' if same else 'DIFFER'}", flush=True)
+        if not np.isfinite(err) or err > 1e-3 or not same:
+            raise SystemExit(f"the card disagrees with the CPU on the reduced {arch}")
+        engine.clear_step_cache()
+
+    worst = 0.0
+    for arch in sorted(registry()):
+        cfg = get_config(arch).reduced()
+        fused = transformer.num_moe_layers(cfg) > 0
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            # the same weights on each device, made anew: a step updates them in place
+            params = transformer.init_params(cfg, device="cpu", seed=2)
+            ctx = DistContext(device=torch.device(dev), moe_fused=fused,
+                              moe_strategy="ep_shardmap" if fused else "auto")
+            trainer = Trainer(cfg, ctx, seq_len=64, global_batch=2, lr=1e-3)
+            trainer.fit(1, make_train_state(_to(params, dev)))
+            runs[dev] = trainer.log[0]
+        d = {k: abs(runs["cpu"][k] - runs["cuda"][k]) for k in ("loss", "grad_norm")}
+        worst = max(worst, *d.values())
+        print(f"reduced {cfg.name} fp32, 1 training step{' on the fused leg' if fused else ''}: "
+              f"loss card {runs["cuda"]['loss']:.6f} cpu {runs['cpu']['loss']:.6f}, grad "
+              f"norm card {runs["cuda"]['grad_norm']:.6f} cpu {runs['cpu']['grad_norm']:.6f}",
+              flush=True)
+        if not all(v <= 1e-4 for v in d.values()) or (
+                runs["cpu"]["chunks"], runs["cpu"]["pipeline"]) != (
+                runs["cuda"]["chunks"], runs["cuda"]["pipeline"]):
+            raise SystemExit(f"the card disagrees with the CPU on a training step of the "
+                             f"reduced {arch} (tolerance 1e-4)")
+    print(f"every reduced config of the registry: one training step, card against CPU, "
+          f"max |loss or grad norm difference| {worst:.3e} (tolerance 1e-4)", flush=True)
+
+
 def check_phase() -> None:
     """The reduced config in fp32: the card (kernels) against the CPU (plain
     versions), same weights, same requests."""
@@ -3293,6 +3863,7 @@ def check_phase() -> None:
 
     for arch in ("jamba-1.5-large-398b", "mamba2-130m"):
         _check_state_model(arch)
+    _check_families()
 
     # two training steps from the same weights on each training leg: the
     # card's kernels against the CPU's plain versions
@@ -3506,11 +4077,14 @@ def main() -> int:
     paths["serve (expert-aware)"] = expert_phase(served, card)
     del served
     paths["serve (hybrid)"] = hybrid_phase(card)
+    encdec_phase(card)
     paths["train (fused leg)"], ce = train_phase()
     paths["train (ragged leg)"] = train_ragged_phase()
     paths["train (EP, 2 ranks)"] = train_ep_phase(ce)
     paths["train (adaptive + placement, 2 ranks)"] = train_adaptive_phase()
     paths["train (resilience)"] = train_resilience_phase()
+    paths["train (families)"], scout_chunk = families_phase(card)
+    scout_kernels(entries, scout_chunk)
     check_phase()
     for path, launches in paths.items():
         for name, n in launches.items():

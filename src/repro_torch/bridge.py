@@ -3,7 +3,8 @@
 The JAX package keeps layers in three places: an unrolled prefix
 (``pre``), the scanned periods (``periods``: one entry per pattern position,
 each leaf stacked over periods on a leading axis, or None) and the
-remainder (``rem``).  The port keeps one list in layer order.  The trees
+remainder (``rem``), and an encoder's layers stacked on a leading axis.
+The port keeps one list in layer order for each.  The trees
 arrive as numpy arrays (``jax.tree.map(np.asarray, tree)``), so this module
 needs no JAX.
 """
@@ -51,9 +52,16 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device, mesh=None) -> dict:
     the dense weights are copied whole."""
     conv = _to_torch(device)
     params = {k: _tree_map(conv, np_tree[k])
-              for k in ("embed", "final_norm", "head") if k in np_tree}
+              for k in ("embed", "final_norm", "head", "pos_embed") if k in np_tree}
     params["layers"] = [_tree_map(conv, layer)
                         for layer in layers_in_order(np_tree, cfg)]
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        params["encoder"] = {
+            "layers": [_tree_map(lambda a, i=i: conv(a[i]), enc["layers"])
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": _tree_map(conv, enc["final_norm"]),
+            "pos_embed": conv(enc["pos_embed"])}
     if mesh is not None:
         for layer in params["layers"]:
             ffn = layer.get("ffn", {})

@@ -172,13 +172,14 @@ H100_80G = HardwareProfile("h100-80g", 80e9, 989e12, 3.35e12, 450e9)
 
 
 # ---------------------------------------------------------------------------
-# registry: the port carries the architectures whose modules it has
+# registry: every architecture of the JAX package's registry
 # ---------------------------------------------------------------------------
 
 # config modules of this package: each defines ``CONFIG`` and may define
 # ``CONFIGS``, further variants (deepseek_mini: the paper's Model I and II)
 _MODULES = ("mixtral_8x7b", "jamba_1_5_large", "mamba2_130m", "deepseek_mini",
-            "llama4_scout", "gemma3_27b", "llama3_2_3b", "yi_9b", "starcoder2_3b")
+            "llama4_scout", "gemma3_27b", "llama3_2_3b", "yi_9b", "starcoder2_3b",
+            "whisper_small", "internvl2_76b")
 
 
 def registry() -> dict[str, ModelConfig]:

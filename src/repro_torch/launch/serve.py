@@ -182,7 +182,7 @@ def setup(args: argparse.Namespace, params: dict | None = None):
     from repro_torch.runtime.faults import FaultInjector
     from repro_torch.serving.paged_scheduler import PagedScheduler
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
-                                               ServeConfig)
+                                               ServeConfig, check_servable)
 
     if (args.prefix_cache or args.preemption) and not args.page_size:
         raise SystemExit("--prefix-cache/--preemption require --page-size")
@@ -193,6 +193,7 @@ def setup(args: argparse.Namespace, params: dict | None = None):
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    check_servable(cfg)              # before any weights are built
     ctx = DistContext(device=device)
     replica_bytes = 0.0
     if args.placement_peers:

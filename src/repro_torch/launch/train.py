@@ -27,10 +27,24 @@
       --smoke --device cpu --ep --fused --steps 6 \
       --checkpoint-dir /path/to/ckpt --checkpoint-every 2 --resume
 
-Training on the card runs the EP strategy with the fused expert leg
-(``--ep --fused``).  The EP strategy's ragged leg trains too, through
-``Trainer`` with ``DistContext(moe_strategy="ep_shardmap", moe_ragged=True)``;
-the JAX launcher has no flag for it, and neither has this one.  The local
+Training an MoE config on the card runs the EP strategy with the fused
+expert leg (``--ep --fused``); a config without an MoE layer in its depth
+(dense, SSM, the encoder-decoder and VLM backbones, Jamba at one layer)
+trains with or without those flags:
+
+  # full-width Whisper-small whole, InternVL2-76B's backbone at 2 layers
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --steps 3 --seq-len 448 --global-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-76b \
+      --layers 2 --steps 3 --seq-len 2048 --global-batch 2
+
+``--seq-len`` counts a VLM's patch positions (the tokens are seq-len minus
+the config's patches; the patches carry no loss); an encoder-decoder's
+frames are the config's ``encoder_seq`` rows beside them.
+
+The EP strategy's ragged leg trains too, through ``Trainer`` with
+``DistContext(moe_strategy="ep_shardmap", moe_ragged=True)``; the JAX
+launcher has no flag for it, and neither has this one.  The local
 path and the EP capacity layout run the grouped kernels, which have no
 backward: on the card, training on them raises, as training them through
 Pallas raises in the JAX package.
@@ -190,6 +204,7 @@ def train(args, rank=None, init_method=None):
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core.moe import DistContext
+    from repro_torch.models.transformer import num_moe_layers
     from repro_torch.runtime.faults import FaultInjector
     from repro_torch.training.trainer import Trainer
 
@@ -209,7 +224,7 @@ def train(args, rank=None, init_method=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat_policy=args.remat)
-    if device.type == "cuda" and not args.fused:
+    if device.type == "cuda" and not args.fused and num_moe_layers(cfg):
         raise RuntimeError(
             "training without --fused runs the grouped expert kernels, which "
             "have no backward; pass --ep --fused to train on the card (the "

@@ -12,6 +12,12 @@ graph captured over the cache reads and writes the same tensors at every
 replay.  A masked decode keeps the cache of the rows outside its mask bit
 for bit, every leaf of it.
 
+An encoder-decoder layer (``"cross"`` in its params) attends, after its
+mixer, over the encoder's output: the training forward and the prefill
+project it into K/V, and the prefill and ``init_layer_cache`` store them as
+the layer cache's ``cross_k`` and ``cross_v``, written once and only read by
+decode and extension afterwards.
+
 Attention runs against the cache in the cache's type (the serving pool is
 fp32 whatever the weights' type); its output is cast back to the
 activations' type before the output projection, so the residual stream
@@ -317,10 +323,49 @@ def _ffn(params: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     return x + h, stats
 
 
+def _cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder output's (B, Se, KH, hd) cross-attention K and V."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (enc_out @ p["wk"]).reshape(shape), (enc_out @ p["wv"]).reshape(shape)
+
+
+def _cross_q(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, S, _ = h.shape
+    return (h @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _cross_prefill(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                   spec: LayerSpec, cfg: ModelConfig):
+    """Cross-attention residual of the forward: (x, (K, V)), non-causal
+    over every encoder row (no qk-norm, no RoPE)."""
+    h = apply_norm(params["norm_x"], x, cfg.norm)
+    k, v = _cross_kv(params["cross"], enc_out, cfg)
+    o = attention(_cross_q(params["cross"], h, cfg), k, v, spec.attn, causal=False)
+    return x + _out_proj(params["cross"], o, x), (k, v)
+
+
+def _cross_cached(params: dict, x: torch.Tensor, cache: dict,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention residual of decode and extension, against the
+    cache's ``cross_k`` and ``cross_v``, which it only reads: every query
+    row sees every encoder row."""
+    h = apply_norm(params["norm_x"], x, cfg.norm)
+    q = _cross_q(params["cross"], h, cfg)
+    k, v = cache["cross_k"], cache["cross_v"]
+    B, C, Se = x.shape[0], x.shape[1], k.shape[1]
+    if C == 1:
+        out = decode_attention(q, k, v, torch.full((B,), Se, device=x.device))
+    else:
+        out = extend_attention(q, k, v, torch.ones((B, C, Se), dtype=torch.bool,
+                                                   device=x.device))
+    return x + _out_proj(params["cross"], out, x)
+
+
 def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, ctx: DistContext, positions: torch.Tensor, *,
-                causal: bool = True, cache_len: Optional[int] = None,
-                cache_dtype=None):
+                causal: bool = True, enc_out: Optional[torch.Tensor] = None,
+                cache_len: Optional[int] = None, cache_dtype=None):
     """Train/prefill.  Returns (x, stats), or (x, stats, cache) when
     ``cache_len`` is given: the single-pass prefill builds the layer's decode
     cache from the K/V this pass computes.
@@ -329,7 +374,9 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
     wraps the layer in a non-reentrant checkpoint (Megatron full
     recomputation); the MoE's per-chunk checkpoints nest inside it, as the
     JAX package's nested ``jax.checkpoint``s do.  A mamba layer's cache is
-    its SSD state after the prompt and the prompt's last w-1 conv inputs."""
+    its SSD state after the prompt and the prompt's last w-1 conv inputs;
+    an encoder-decoder layer's also holds the cross K/V of ``enc_out``."""
+    cross = "cross" in params and enc_out is not None
     if cache_len is not None:
         h = apply_norm(params["norm1"], x, cfg.norm)
         dtype = cache_dtype or x.dtype
@@ -341,7 +388,11 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
             h, state = ssm_mod.apply_ssm(params["mixer"], h, spec.ssm,
                                          return_state=True)
             cache = {"ssm": {n: t.to(dtype) for n, t in state.items()}}
-        x, stats = _ffn(params, x + h, spec, cfg, ctx)
+        x = x + h
+        if cross:
+            x, (k, v) = _cross_prefill(params, x, enc_out, spec, cfg)
+            cache["cross_k"], cache["cross_v"] = k.to(dtype), v.to(dtype)
+        x, stats = _ffn(params, x, spec, cfg, ctx)
         return x, stats if stats is not None else zero_stats(cfg, x.device), cache
 
     def layer_fn(x):
@@ -350,7 +401,10 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
             h = attn_mixer(params["mixer"], h, cfg, spec, positions, ctx, causal)
         else:
             h = ssm_mod.apply_ssm(params["mixer"], h, spec.ssm)
-        x, stats = _ffn(params, x + h, spec, cfg, ctx)
+        x = x + h
+        if cross:
+            x = _cross_prefill(params, x, enc_out, spec, cfg)[0]
+        x, stats = _ffn(params, x, spec, cfg, ctx)
         return x, stats if stats is not None else zero_stats(cfg, x.device)
 
     if cfg.remat_policy in ("full", "memfine") and torch.is_grad_enabled():
@@ -385,7 +439,10 @@ def apply_layer_decode(params: dict, x: torch.Tensor, cache: dict,
     else:
         h, state = ssm_mod.decode_ssm(params["mixer"], h, cache["ssm"], spec.ssm)
         write_state(cache["ssm"], state, mask)
-    x, stats = _ffn(params, x + h, spec, cfg, ctx)
+    x = x + h
+    if "cross" in params and "cross_k" in cache:
+        x = _cross_cached(params, x, cache, cfg)
+    x, stats = _ffn(params, x, spec, cfg, ctx)
     if return_load:
         return x, cache, _row_load(stats, cfg, x)
     return x, cache
@@ -407,20 +464,31 @@ def apply_layer_extend(params: dict, x: torch.Tensor, cache: dict,
                                      return_state=True,
                                      initial_state=cache["ssm"])
         write_state(cache["ssm"], state)
-    x, stats = _ffn(params, x + h, spec, cfg, ctx)
+    x = x + h
+    if "cross" in params and "cross_k" in cache:
+        x = _cross_cached(params, x, cache, cfg)
+    x, stats = _ffn(params, x, spec, cfg, ctx)
     if return_load:
         return x, cache, _row_load(stats, cfg, x)
     return x, cache
 
 
 def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
-                     seq_len: int, dtype, device) -> dict:
+                     seq_len: int, dtype, device,
+                     enc_out: Optional[torch.Tensor] = None,
+                     cross_params: Optional[dict] = None) -> dict:
     """Decode cache for one layer (window layers ring-bounded; a mamba
-    layer's state and conv tail, whatever the length)."""
+    layer's state and conv tail, whatever the length).  With ``enc_out``
+    and an encoder-decoder layer's ``cross_params``, also the cross K/V of
+    ``enc_out``, as computed (the reference keeps their type too)."""
     if spec.mixer != "attn":
-        return {"ssm": ssm_mod.init_state(batch, cfg.d_model, spec.ssm, dtype,
-                                          device)}
-    Sc = cache_len(spec, seq_len)
-    shape = (batch, Sc, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        cache = {"ssm": ssm_mod.init_state(batch, cfg.d_model, spec.ssm, dtype,
+                                           device)}
+    else:
+        Sc = cache_len(spec, seq_len)
+        shape = (batch, Sc, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache = {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    if cross_params is not None and enc_out is not None:
+        cache["cross_k"], cache["cross_v"] = _cross_kv(cross_params, enc_out, cfg)
+    return cache

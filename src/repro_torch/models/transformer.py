@@ -1,17 +1,28 @@
-"""Decoder-only stack over LayerSpec patterns (attention and Mamba-2
-mixers, dense, MoE or no FFN): init, the training forward and prefill,
-decode.
+"""Decoder and encoder-decoder stack over LayerSpec patterns (attention and
+Mamba-2 mixers, dense, MoE or no FFN): init, the training forward and
+prefill, decode.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``head`` (unless the
-embeddings are tied) and ``layers``, one dict per layer in layer order.  The
-JAX package stacks the layers of its scanned periods on a leading axis; the
-port keeps them as a list (``bridge.params_from_jax`` unstacks).
+embeddings are tied), ``pos_embed`` (learned positions), ``layers``, one
+dict per layer in layer order, and for an encoder-decoder config
+``encoder``: {"layers": [...], "final_norm", "pos_embed"}.  The JAX package
+stacks the layers of its scanned periods and its encoder on a leading
+axis; the port keeps them as lists (``bridge.params_from_jax`` unstacks).
+
+Inputs beside the tokens, as in the JAX package: a VLM's ``patches`` (B,
+n_patch, d) take the first positions of the sequence, ahead of the token
+embeddings; an audio model's ``frames`` (B, encoder_seq, d) go through the
+encoder (``encode``), whose output every decoder layer cross-attends.  The
+conv frontend and the vision tower are stubs in both packages: the frames
+and patches arrive as embeddings.
 
 A cache is {"pos": (B,) int64 positions, "layers": [per-layer caches]}.
 ``decode_step`` and ``extend_step`` update the cache tensors in place, the
 positions included, and return the same dict: a CUDA graph captured over
 them (``serving/engine.py``) reads and writes the same tensors at every
-replay.
+replay.  A learned position embedding is read per row at the row's own
+position (clamped to the table), where the reference reads one position for
+the batch.
 """
 
 from __future__ import annotations
@@ -20,41 +31,58 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import AttentionSpec, LayerSpec, ModelConfig
 from repro_torch.core.moe import DistContext
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm
+
+# every encoder layer: bidirectional attention without RoPE, a dense FFN
+_ENC_SPEC = LayerSpec(mixer="attn", ffn="dense",
+                      attn=AttentionSpec(kind="full", rope=False))
 
 
 # ---------------------------------------------------------------------------
 # init (the JAX package's shapes and scales; the numbers come from torch)
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers or cfg.num_patch_tokens or cfg.learned_pos:
-        raise NotImplementedError(f"{cfg.name!r}: encoder, patch and learned-"
-                                  "position inputs are not ported yet")
+def _norm(n: int, kind: str, device) -> dict:
+    """A norm's fp32 parameters: a unit scale, and for LayerNorm a zero
+    bias."""
+    p = {"scale": torch.ones(n, dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(n, dtype=torch.float32, device=device)
+    return p
 
 
-def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut) -> dict:
+def _init_attention(normal, cfg: ModelConfig, qk_norm: bool = False) -> dict:
     d, H, KH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    ones = lambda n: torch.ones(n, dtype=torch.float32, device=normal.device)  # noqa: E731
+    p = {"wq": normal((d, H * hd), d ** -0.5),
+         "wk": normal((d, KH * hd), d ** -0.5),
+         "wv": normal((d, KH * hd), d ** -0.5),
+         "wo": normal((H * hd, d), (H * hd) ** -0.5)}
+    if qk_norm:
+        p["q_norm"] = _norm(hd, "rmsnorm", normal.device)
+        p["k_norm"] = _norm(hd, "rmsnorm", normal.device)
+    return p
+
+
+def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut,
+                cross: bool = False) -> dict:
+    d = cfg.d_model
+    norm = lambda: _norm(d, cfg.norm, normal.device)  # noqa: E731
     if spec.mixer == "attn":
-        mixer = {"wq": normal((d, H * hd), d ** -0.5),
-                 "wk": normal((d, KH * hd), d ** -0.5),
-                 "wv": normal((d, KH * hd), d ** -0.5),
-                 "wo": normal((H * hd, d), (H * hd) ** -0.5)}
-        if spec.attn.qk_norm:
-            mixer["q_norm"] = {"scale": ones(hd)}
-            mixer["k_norm"] = {"scale": ones(hd)}
+        mixer = _init_attention(normal, cfg, spec.attn.qk_norm)
     else:
         mixer = ssm_mod.init_ssm(normal, d, spec.ssm)
-    p = {"norm1": {"scale": ones(d)}, "mixer": mixer}
+    p = {"norm1": norm(), "mixer": mixer}
+    if cross:
+        p["norm_x"] = norm()
+        p["cross"] = _init_attention(normal, cfg)
     if spec.ffn == "none":
         return p
-    p["norm2"] = {"scale": ones(d)}
+    p["norm2"] = norm()
     if spec.ffn == "dense":
         f = cfg.d_ff
         p["ffn"] = {"w1": normal((d, f), d ** -0.5), "w3": normal((d, f), d ** -0.5),
@@ -96,17 +124,28 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.float32,
     ``dtype``, norm scales and the router in fp32.  Under a mesh
     (``launch/mesh.py``) each expert weight keeps only this rank's E / P
     experts, cut from the same draw as the one-rank init makes, and the
-    whole weight is freed as soon as it is cut."""
-    _check_supported(cfg)
+    whole weight is freed as soon as it is cut.  An encoder-decoder
+    config's decoder layers carry ``norm_x`` and ``cross``, and its encoder
+    ``encoder_layers`` layers of ``_ENC_SPEC``."""
     normal = _Normal(seed, device, dtype)
+    dev = normal.device
     cut = ((lambda w: w) if mesh is None
            else (lambda w: mesh.local_experts(w).clone()))
     params = {"embed": normal((cfg.padded_vocab, cfg.d_model), 0.02),
-              "final_norm": {"scale": torch.ones(cfg.d_model, device=normal.device)}}
+              "final_norm": _norm(cfg.d_model, cfg.norm, dev)}
     if not cfg.tie_embeddings:
         params["head"] = normal((cfg.d_model, cfg.padded_vocab), cfg.d_model ** -0.5)
-    params["layers"] = [_init_layer(spec, cfg, normal, cut)
+    if cfg.learned_pos:
+        params["pos_embed"] = normal((cfg.learned_pos, cfg.d_model), 0.02)
+    cross = cfg.encoder_layers > 0
+    params["layers"] = [_init_layer(spec, cfg, normal, cut, cross)
                         for spec in cfg.layer_specs()]
+    if cross:
+        params["encoder"] = {
+            "layers": [_init_layer(_ENC_SPEC, cfg, normal, cut)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": _norm(cfg.d_model, cfg.norm, dev),
+            "pos_embed": normal((cfg.encoder_seq, cfg.d_model), 0.02)}
     return params
 
 
@@ -115,7 +154,43 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"]]
+    """Token embeddings, after the patch embeddings where the config takes
+    them, plus the learned positions 0..S-1 where it has them."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.num_patch_tokens and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][:x.shape[1]]
+    return x
+
+
+def _embed_at(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    """Embeddings of (B, C) tokens at per-row positions pos..pos+C-1: the
+    learned position of each, clamped to the table's last row."""
+    x = params["embed"][tokens]
+    if cfg.learned_pos:
+        idx = pos[:, None] + torch.arange(tokens.shape[1], device=pos.device)
+        x = x + params["pos_embed"][idx.clamp(max=cfg.learned_pos - 1)]
+    return x.to(params["embed"].dtype)
+
+
+# ---------------------------------------------------------------------------
+# encoder: frames are the conv frontend's output embeddings (a stub in both
+# packages)
+# ---------------------------------------------------------------------------
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           ctx: DistContext) -> torch.Tensor:
+    """(B, encoder_seq, d) frames -> the encoder's normed output."""
+    enc = params["encoder"]
+    x = frames.to(enc["pos_embed"].dtype) + enc["pos_embed"]
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for layer_params in enc["layers"]:
+        x, _ = blocks.apply_layer(layer_params, x, _ENC_SPEC, cfg, ctx, positions,
+                                  causal=False)
+    return apply_norm(enc["final_norm"], x, cfg.norm)
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -148,13 +223,16 @@ def forward(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict, *,
     adaptive MACT and expert placement.  ``ctx.layer_schedules`` (one
     ScheduleSpec per MoE layer) and ``ctx.placements`` (one PlacementSpec
     per MoE layer) give each MoE layer its own schedule and placement
-    (``blocks.layer_ctx``)."""
-    _check_supported(cfg)
+    (``blocks.layer_ctx``).  An encoder-decoder config first encodes the
+    batch's ``frames``, and every layer cross-attends the encoder's output."""
     for name in ("layer_schedules", "placements"):
         vec = getattr(ctx, name)
         if vec is not None and len(vec) != num_moe_layers(cfg):
             raise ValueError(f"{name} has {len(vec)} entries, config {cfg.name!r} "
                              f"has {num_moe_layers(cfg)} MoE layers")
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = encode(params, cfg, batch["frames"], ctx)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -168,7 +246,8 @@ def forward(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict, *,
         # an MoE layer's own schedule and placement; its position among the
         # MoE layers is the number of loads gathered so far
         lctx = blocks.layer_ctx(ctx, len(loads) if spec.ffn == "moe" else None)
-        out = blocks.apply_layer(layer_params, x, spec, cfg, lctx, positions, **kw)
+        out = blocks.apply_layer(layer_params, x, spec, cfg, lctx, positions,
+                                 enc_out=enc_out, **kw)
         x, st = out[0], out[1]
         if return_cache:
             caches.append(out[2])
@@ -191,12 +270,14 @@ def forward(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(params: dict, cfg: ModelConfig, batch_size: int, seq_len: int,
-               dtype, device) -> dict:
-    _check_supported(cfg)
+               dtype, device, enc_out: Optional[torch.Tensor] = None) -> dict:
+    """An empty decode cache; with ``enc_out`` (B, Se, d), each
+    encoder-decoder layer's cross K/V projected from it."""
     return {"pos": torch.zeros(batch_size, dtype=torch.long, device=device),
             "layers": [blocks.init_layer_cache(spec, cfg, batch_size, seq_len,
-                                               dtype, device)
-                       for spec in cfg.layer_specs()]}
+                                               dtype, device, enc_out=enc_out,
+                                               cross_params=layer.get("cross"))
+                       for spec, layer in zip(cfg.layer_specs(), params["layers"])]}
 
 
 def _load_matrix(loads: list, cfg: ModelConfig, x: torch.Tensor,
@@ -225,7 +306,7 @@ def decode_step(params: dict, cfg: ModelConfig, ctx: DistContext,
     and each row's logits do not depend on the others'.  The default path
     is the one without the flags."""
     pos = cache["pos"]
-    x = params["embed"][tokens]
+    x = _embed_at(params, cfg, tokens, pos)
     loads = []
     for i, (layer_params, spec) in enumerate(zip(params["layers"],
                                                  cfg.layer_specs())):
@@ -251,7 +332,7 @@ def extend_step(params: dict, cfg: ModelConfig, ctx: DistContext,
     ``return_load`` appends the (L_moe, E) routed-load matrix, as in
     ``decode_step``."""
     pos0 = cache["pos"]
-    x = params["embed"][tokens]
+    x = _embed_at(params, cfg, tokens, pos0)
     loads = []
     for i, (layer_params, spec) in enumerate(zip(params["layers"],
                                                  cfg.layer_specs())):

@@ -74,10 +74,12 @@ from repro_torch.serving import residency
 
 
 def init_serve_cache(params: dict, cfg: ModelConfig, batch: int, seq_len: int,
-                     dtype=torch.float32) -> dict:
-    """An empty decode cache for ``batch`` rows on the weights' device."""
+                     dtype=torch.float32,
+                     enc_out: Optional[torch.Tensor] = None) -> dict:
+    """An empty decode cache for ``batch`` rows on the weights' device; with
+    ``enc_out``, the cross K/V projected from it."""
     return transformer.init_cache(params, cfg, batch, seq_len, dtype,
-                                  params["embed"].device)
+                                  params["embed"].device, enc_out=enc_out)
 
 
 def build_placements(cfg: ModelConfig, ctx: DistContext, num_peers: int, *,
@@ -133,6 +135,11 @@ def copy_cache_(dst, src) -> None:
     """Copy every tensor of ``src`` into the matching tensor of ``dst``."""
     for d, s in zip(leaves(dst), leaves(src)):
         d.copy_(s)
+
+
+def clone_cache(tree):
+    """A copy of every tensor of ``tree``, in its structure."""
+    return _fill(tree, iter([t.clone() for t in leaves(tree)]))
 
 
 def _fill(skeleton, values):
@@ -318,7 +325,7 @@ class CompiledStep:
                 return s
         free = next((s for s in sets if not s.held()), None)
         if free is None:
-            free = _Static(_fill(cache, iter([t.clone() for t in tensors])))
+            free = _Static(clone_cache(cache))
             sets.append(free)
         return free
 
@@ -478,8 +485,10 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
     expert-aware scheduler.
 
     ``pools`` holds per layer one {"k", "v"} pair of (pages, page, KH, hd)
-    page pools, or for a mamba layer one {"ssm", "conv"} pair of (blocks,
-    *state shape) state pools; ``layer_groups[i]`` is layer i's page group
+    page pools (and for an encoder-decoder layer a {"cross_k", "cross_v"}
+    pair of (blocks, Se, KH, hd) state pools, which the wave only reads),
+    or for a mamba layer one {"ssm", "conv"} pair of (blocks, *state shape)
+    state pools; ``layer_groups[i]`` is layer i's page group
     (``serving/paging.py::Group``), None for a mamba layer.
     ``gather_tables`` is a tuple of (B, n_blocks) page ids and
     ``write_pages`` one of (B,) page ids, one entry per distinct group in
@@ -504,9 +513,13 @@ def get_paged_decode_step(cfg: ModelConfig, ctx: DistContext,
                 if g is None:               # the slot's state block, a copy
                     layers.append({"ssm": {n: t[state_blocks[0]]
                                            for n, t in pool.items()}})
-                else:
-                    layers.append({"attn": {n: blocks.gather_paged_tokens(
-                        pool[n], gather_tables[j], 0, g.length) for n in ("k", "v")}})
+                    continue
+                layer = {"attn": {n: blocks.gather_paged_tokens(
+                    pool[n], gather_tables[j], 0, g.length) for n in ("k", "v")}}
+                for n in ("cross_k", "cross_v"):  # read-only: never written back
+                    if n in pool:
+                        layer[n] = pool[n][state_blocks[0]]
+                layers.append(layer)
             cache = {"pos": pos.clone(), "layers": layers}
             logits, cache, load = transformer.decode_step(
                 params, cfg, ctx, cache, tokens, return_load=True, per_row=True)
@@ -664,8 +677,9 @@ def rewind_chunk(cache: dict, snapshot) -> None:
 
 def prefill(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict,
             cache_len: int, dtype=torch.float32):
-    """Single-pass batched prefill.  Returns (next_token_logits (B, 1, V),
-    cache)."""
+    """Single-pass batched prefill of ``batch`` (tokens, and the config's
+    ``frames`` or ``patches``; ``cache_len`` counts the patch positions).
+    Returns (next_token_logits (B, 1, V), cache)."""
     logits, cache, _ = get_prefill_fn(cfg, ctx, cache_len, dtype)(params, batch)
     return logits, cache
 
@@ -674,15 +688,25 @@ def prefill_replay(params: dict, cfg: ModelConfig, ctx: DistContext,
                    batch: dict, cache_len: int, dtype=torch.float32):
     """Token-by-token replay prefill through the compiled decode step --
     O(S) steps.  The reference oracle for cache-layout parity tests;
-    production callers use ``prefill``."""
+    production callers use ``prefill``.  An encoder-decoder config's cache
+    starts from the cross K/V of the encoded ``frames``; patches are not
+    replayed, as in the reference."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    cache = init_serve_cache(params, cfg, B, cache_len, dtype)
+    enc_out = None
+    if cfg.encoder_layers:
+        with torch.no_grad():
+            enc_out = transformer.encode(params, cfg, batch["frames"], ctx)
+    cache = init_serve_cache(params, cfg, B, cache_len, dtype, enc_out=enc_out)
     step = get_decode_step(cfg, ctx)
     logits = None
     for i in range(S):
         logits, cache = step(params, cache, tokens[:, i:i + 1])
     return logits, cache
+
+
+class _Holder:
+    """A weak-referenceable owner of a static cache for one call."""
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, ctx: DistContext, cache,
@@ -719,9 +743,14 @@ def generate(params: dict, cfg: ModelConfig, ctx: DistContext, batch: dict,
              steps: int, cache_len: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Greedy (``temperature == 0``) or sampled batched generation;
-    returns (B, steps) token ids."""
+    returns (B, steps) token ids.  The decode graph runs on the prefill's
+    cache as one of its static caches, so no replay copies the cache (an
+    encoder-decoder's cross K/V are the largest part of it): a copy, since
+    the prefill graph's next replay overwrites the buffers it returned."""
     logits, cache = prefill(params, cfg, ctx, batch, cache_len)
     step = get_decode_step(cfg, ctx)
+    holder = _Holder()
+    cache = step.static_cache(clone_cache(cache), holder)
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=logits.device).manual_seed(0)
     out = []

@@ -8,10 +8,12 @@ trie); this module owns the page pools and what runs on them.
   (``models/transformer.py``), so its leaves are classified directly: every
   K and V leaf is a *token* leaf, paged along its token axis and grouped by
   ``Group(length, ring)`` from ``blocks.cache_len`` and ``blocks._is_ring``;
-  a mamba layer's SSD state and conv tail are *state* leaves, one
-  constant-size block per request in the allocator's state space; ``pos``
-  is kept on the host, one per request.  An attention decoder's state
-  blocks weigh 0 bytes, as the reference's do.
+  a mamba layer's SSD state and conv tail, and an encoder-decoder layer's
+  cross K/V (``cross_k``, ``cross_v``: (Se, KH, hd) each, written at
+  install and only read by decode), are *state* leaves, one constant-size
+  block per request in the allocator's state space; ``pos`` is kept on the
+  host, one per request.  An attention decoder's state blocks weigh 0
+  bytes, as the reference's do.
 * **PagedCachePool** -- one fp32 pool per leaf: ``(RESERVED_PAGES + pages,
   page, KH, hd)`` per token leaf, ``(RESERVED_PAGES + blocks, *state
   shape)`` per state leaf.  A decode wave gathers each slot's page table
@@ -60,23 +62,37 @@ from repro_torch.serving.paging import (RESERVED_PAGES, SCRATCH_PAGE,
 
 KV = ("k", "v")
 STATE = ("ssm", "conv")
+CROSS = ("cross_k", "cross_v")
+
+
+def state_leaf(layer: dict, name: str) -> torch.Tensor:
+    """A layer cache's state leaf ``name``: a mamba leaf under ``"ssm"``,
+    a cross K/V leaf at the top."""
+    return layer["ssm"][name] if name in STATE else layer[name]
 
 
 class CacheLayout:
     """Per layer of one (cfg, cache_len) decode cache: the page group of an
-    attention layer's K and V leaves, or None for a mamba layer, whose
-    state leaves have the shapes ``state_shapes``."""
+    attention layer's K and V leaves, or None for a mamba layer, and the
+    shapes of the layer's state leaves (``state_shapes``: a mamba layer's
+    state and conv tail, an encoder-decoder layer's cross K/V of
+    ``cfg.encoder_seq`` encoder rows; None without any)."""
 
     def __init__(self, cfg: ModelConfig, cache_len: int):
         self.row = cfg.num_kv_heads * cfg.resolved_head_dim  # a leaf's token
         self.layer_groups: list[Optional[Group]] = []
         self.state_shapes: list[Optional[dict]] = []
+        # ``encode`` adds the (encoder_seq, d) position table: every encoder
+        # output has encoder_seq rows
+        enc_seq = cfg.encoder_seq if cfg.encoder_layers else 0
+        cross = (enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
         for spec in cfg.layer_specs():
             if spec.mixer == "attn":
                 Sc = blocks.cache_len(spec, cache_len)
                 self.layer_groups.append(Group(length=Sc,
                                                ring=blocks._is_ring(spec, Sc)))
-                self.state_shapes.append(None)
+                self.state_shapes.append({n: cross for n in CROSS}
+                                         if enc_seq else None)
             else:
                 self.layer_groups.append(None)
                 self.state_shapes.append(ssm_mod.state_shapes(cfg.d_model, spec.ssm))
@@ -93,7 +109,7 @@ class CacheLayout:
 
     def state_bytes(self, dtype_bytes: int) -> float:
         """One request's state block: every mamba layer's state and conv
-        tail (0 for an attention decoder)."""
+        tail and every cross K/V (0 for an attention decoder)."""
         return float(sum(math.prod(shape) for st in self.state_shapes
                          if st is not None for shape in st.values())
                      * dtype_bytes)
@@ -138,15 +154,16 @@ class PagedCachePool:
         state_rows = RESERVED_PAGES + self.alloc.spaces[STATE_SPACE].total
         pools = []
         for g, st in zip(self.layout.layer_groups, self.layout.state_shapes):
-            if g is None:
-                pools.append({n: torch.zeros((state_rows,) + st[n],
-                                             dtype=torch.float32, device=self.device)
-                              for n in STATE})
-            else:
+            pool = {}
+            if g is not None:
                 rows = RESERVED_PAGES + self.alloc.spaces[space_key(g)].total
-                pools.append({n: torch.zeros((rows, page_size) + kv,
-                                             dtype=torch.float32, device=self.device)
-                              for n in KV})
+                pool = {n: torch.zeros((rows, page_size) + kv,
+                                       dtype=torch.float32, device=self.device)
+                        for n in KV}
+            for n, shape in (st or {}).items():
+                pool[n] = torch.zeros((state_rows,) + shape, dtype=torch.float32,
+                                      device=self.device)
+            pools.append(pool)
         self._decode = engine.get_paged_decode_step(
             cfg, ctx, tuple(self.layout.layer_groups), page_size)
         # the graph's static cache: every later write goes into these tensors
@@ -293,15 +310,14 @@ class PagedCachePool:
                     self.ops.ensure_block(rp, g, b)
         self.ops.alloc_state(rp)
         tables = self._full_tables(rp.tables, SCRATCH_PAGE)
-        for pool, g, layer in zip(self.pools, self.layout.layer_groups,
-                                  dense["layers"]):
-            if g is None:
-                for n in STATE:
-                    pool[n][rp.state_block].copy_(layer["ssm"][n][0])
-                continue
-            for n in KV:
-                blocks.scatter_paged_tokens(pool[n], tables[g],
-                                            layer["attn"][n][0], 0, self.page)
+        for pool, g, st, layer in zip(self.pools, self.layout.layer_groups,
+                                      self.layout.state_shapes, dense["layers"]):
+            for n in st or ():
+                pool[n][rp.state_block].copy_(state_leaf(layer, n)[0])
+            if g is not None:
+                for n in KV:
+                    blocks.scatter_paged_tokens(pool[n], tables[g],
+                                                layer["attn"][n][0], 0, self.page)
 
     def gather_dense(self, rp_tables: dict, state_vals: list, pos: int) -> dict:
         """A dense (B=1) cache from per-group block -> page lists (a prefix
@@ -314,18 +330,21 @@ class PagedCachePool:
         for pool, g, st in zip(self.pools, self.layout.layer_groups, state_vals):
             if g is None:
                 layers.append({"ssm": {n: st[n][None].to(self.device) for n in STATE}})
-            else:
-                layers.append({"attn": {n: blocks.gather_paged_tokens(
-                    pool[n], tables[g], 0, g.length)[None] for n in KV}})
+                continue
+            layer = {"attn": {n: blocks.gather_paged_tokens(
+                pool[n], tables[g], 0, g.length)[None] for n in KV}}
+            for n in st or ():
+                layer[n] = st[n][None].to(self.device)
+            layers.append(layer)
         return {"pos": self._ids([pos]), "layers": layers}
 
     def state_snapshot(self, dense: dict) -> list:
         """Host copies of a dense (B=1) cache's state leaves, per layer
-        (None for an attention layer): what a prefix-trie node stores, so a
+        (None for a layer without any): what a prefix-trie node stores, so a
         resume of a hybrid or SSM model is bit-exact."""
-        return [None if g is not None else
-                {n: self._to_host(layer["ssm"][n][0].clone()) for n in STATE}
-                for g, layer in zip(self.layout.layer_groups, dense["layers"])]
+        return [None if st is None else
+                {n: self._to_host(state_leaf(layer, n)[0].clone()) for n in st}
+                for st, layer in zip(self.layout.state_shapes, dense["layers"])]
 
     # -- preemption: spill to host / restore ---------------------------------
 
@@ -345,13 +364,13 @@ class PagedCachePool:
         """The request's allocated page rows and state block rows, per
         layer and leaf, in pool order."""
         live = self._live(rp.tables)
-        for pool, g in zip(self.pools, self.layout.layer_groups):
-            if g is None:
-                for n in STATE:
-                    yield pool[n], self._ids([rp.state_block])
-            else:
+        for pool, g, st in zip(self.pools, self.layout.layer_groups,
+                               self.layout.state_shapes):
+            if g is not None:
                 for n in KV:
                     yield pool[n], live[g]
+            for n in st or ():
+                yield pool[n], self._ids([rp.state_block])
 
     def spill(self, rp: RequestPages, fault_hook=None) -> dict:
         """Copy the request's allocated pages and state block to host

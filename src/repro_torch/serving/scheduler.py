@@ -149,13 +149,20 @@ class ServeConfig:
                                         # requests with no telemetry yet
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """The schedulers serve token-only decoders, as the reference's do: an
+    encoder or patch-input config raises (``engine.prefill`` and
+    ``engine.generate`` serve it)."""
+    if cfg.encoder_layers or cfg.num_patch_tokens:
+        raise ValueError("continuous batching serves token-only decoders; "
+                         f"{cfg.name!r} needs per-request encoder state")
+
+
 class ContinuousBatchingScheduler:
     def __init__(self, params: dict, cfg: ModelConfig, ctx: DistContext,
                  scfg: ServeConfig, eager: bool = False,
                  injector: Optional[FaultInjector] = None):
-        if cfg.encoder_layers or cfg.num_patch_tokens:
-            raise ValueError("continuous batching serves token-only decoders; "
-                             f"{cfg.name!r} needs per-request encoder state")
+        check_servable(cfg)
         self.params, self.cfg, self.ctx, self.scfg = params, cfg, ctx, scfg
         self.eager = eager
         self.queue: deque[Request] = deque()

@@ -34,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.moe import DistContext
 from repro_torch.kernels import ops
 from repro_torch.optim import adamw
-from repro_torch.optim.adamw import param_list
+from repro_torch.optim.adamw import named_params, param_list
 from repro_torch.runtime import guard as tguard
 from repro_torch.runtime.faults import (FaultInjector, FaultSpec, SimulatedCrash,
                                         SimulatedOOM, parse_spec)
@@ -442,14 +442,20 @@ def test_launcher_walks_the_ladder_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_trainer_still_refuses_what_is_not_ported():
-    """Adaptive MACT and expert placement are ported and construct; a
-    config whose inputs the port has not ported still raises."""
+    """Adaptive MACT and expert placement are ported and construct; the
+    learned-position inputs this test once saw refused are ported too, so a
+    config with them trains under adaptive MACT and its position table
+    learns."""
     tr = Trainer(CFG, _ctx(), **KW, adaptive_mact=True, use_placement=True,
                  placement_replicas=1)
     assert tr.mact.replica_slots == 1 and tr.telemetry.num_layers == 2
     learned = dataclasses.replace(CFG, learned_pos=64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(learned, _ctx(), **KW, adaptive_mact=True).fit(1)
+    tr = Trainer(learned, _ctx(), **KW, adaptive_mact=True)
+    state = tr.fit(1)
+    assert state.step == 1 and np.isfinite(tr.log[0]["loss"])
+    assert state.params["pos_embed"].shape == (64, learned.d_model)
+    names = [n for n, _ in named_params(state.params)]
+    assert state.opt.mu[names.index("/pos_embed")].abs().sum() > 0
 
 
 def test_injected_oom_under_adaptive_mact_walks_as_the_reference_trainer(monkeypatch):
