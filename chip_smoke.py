@@ -31,13 +31,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               them.  The Hopper kernels and scatter_rows are relaunched
               and must repeat their first output bit for bit; the
               dispatch kernels must equal their plain versions bit for
-              bit.
+              bit.  Then the three kernels with a runtime row tile (bf16
+              ragged_matmul in both layouts, fused_moe's down pass,
+              segment_outer) at the training chunk's layout, each at tm 64
+              and 128: bit-equal, each tile's device ms beside the bound,
+              and autotune() searching the two into a cache of its own
+              (default, winner and each candidate's ms printed).
 4. serve   -- repro_torch.launch.serve drives full-width Mixtral-8x7B (depth
               cut to 4 layers, random bf16 weights from a seed) through an
               8-request trace, every decode wave and prefill chunk a replay
               of a captured CUDA graph (serving/engine.py); every request
               must finish with finite logits, and each grouped kernel must
               have launched once per MoE layer per pass, replays counted.
+              Then the scheduler's reset() and the same trace again: the
+              same streams, order and counts, and no graph captured.
 5. profile -- the same trace on the same weights, eager and compiled in
               turns, three runs each, the compiled ones on warm graphs:
               streams, admission order and counts must equal the serve
@@ -98,6 +105,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               the peak of one forward + backward against MACT's modeled
               activation bytes at MACT's schedule, at (2, 1) and unchunked:
               two sequential chunks must not raise it above one chunk's.
+              Then one forward + backward at MACT's schedule from one state
+              and batch, with the default row tiles and under a cache that
+              forces the other tile on every tunable kernel: the loss and
+              every gradient bit-equal.
 11. train (ragged leg) -- the same model and steps through Trainer, built as
               launch/train.py builds it, on the three-launch ragged leg
               (dispatch buffer, ragged_swiglu, ragged_matmul, combine);
@@ -170,7 +181,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               d_ff 8192) and the chunk MACT chose in the train (families)
               run, at one peer: each against its plain version in fp32 and
               bf16, relaunched, timed beside the plain version, the library
-              yardstick and the bound, as in phase 3.
+              yardstick and the bound, and the row tiles checked, timed and
+              searched, as in phase 3.
 17. check  -- the reduced Mixtral config in fp32 on the card (TF32 off for
               matmuls and cuDNN) against the same weights on the CPU: prefill
               logits and greedy token streams must agree, and 2 training
@@ -187,7 +199,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               card against the CPU (prefill logits, greedy streams), and one
               training step of every reduced config of the registry (the
               fused leg where it has MoE layers): losses and grad norms
-              within 1e-4.
+              within 1e-4.  Two ragged-leg steps under selective remat: the
+              card against the CPU within 1e-5, the q, k, v projections
+              computed once a step on both; and the bytes a forward holds
+              for the backward under "none" > "selective" > "full".
+
+The run reads and writes its own empty tile cache (REPRO_TORCH_AUTOTUNE_CACHE
+in a temporary directory), so a cache under $HOME changes no phase, and the
+tile search's winners go to a file of their own: every phase but the tile
+checks runs the default tiles.
 
 The next-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -196,6 +216,7 @@ of the repository, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -743,7 +764,8 @@ def _chunk_cases(gen, dev, randn, t: int, n_exp: int, k: int, d: int, f: int,
     print(f"{tag}chunk routing: {live} of {R} ragged rows live, {used} experts used",
           flush=True)
     lay = types.SimpleNamespace(w1=w1, w3=w3, w2=w2, weights=weights, buf=buf, h=h,
-                                b2e=b2e, total=total, live=live, offs=offs)
+                                b2e=b2e, total=total, live=live, offs=offs, used=used,
+                                x_rows=x_rows, recv_src=recv_src)
     return cases, lay
 
 
@@ -904,10 +926,13 @@ def train_kernels_phase() -> dict:
             "shapes": shapes,
         }
     del cases, w1, w3, w2, weights
-    lay.w1 = lay.w3 = lay.w2 = lay.weights = None
+    tiles = tile_checks(lay, "")
+    lay.w1 = lay.w3 = lay.w2 = lay.weights = lay.x_rows = None
     torch.cuda.empty_cache()
     entries["segment_outer"] = weight_grad_kernel(lay.buf, lay.h, lay.b2e, lay.total,
                                                   lay.live, lay.offs, gen)
+    for name, rows in tiles.items():
+        entries[name]["tiles"] = rows
     del lay
     torch.cuda.empty_cache()
     while layouts:
@@ -952,7 +977,9 @@ def scout_kernels(entries: dict, t_chunk: int) -> None:
     for name, shapes in _run_cases(cases).items():
         entries[name]["shapes"] += [{"model": SCOUT, **row} for row in shapes]
     del cases
-    lay.w1 = lay.w3 = lay.w2 = lay.weights = None
+    for name, rows in tile_checks(lay, tag).items():
+        entries[name]["tiles"] += [{"model": SCOUT, **row} for row in rows]
+    lay.w1 = lay.w3 = lay.w2 = lay.weights = lay.x_rows = None
     torch.cuda.empty_cache()
     entries["segment_outer"]["shapes"] += [
         {"model": SCOUT, **row} for row in weight_grad_kernel(
@@ -960,6 +987,110 @@ def scout_kernels(entries: dict, t_chunk: int) -> None:
             n_experts=n_exp, tag=tag)["shapes"]]
     del lay
     torch.cuda.empty_cache()
+
+
+TILES = (64, 128)       # the row tiles of the bf16 kernels with a runtime tile
+
+
+@contextlib.contextmanager
+def tile_search():
+    """The autotuner's winners go to a cache file of their own while the
+    tile checks search, so no later phase runs them: every other phase
+    runs the default tiles, from the run's empty cache (``main``)."""
+    from repro_torch.kernels import autotune
+    run_cache = autotune.cache_path()
+    autotune.set_cache_path(str(Path(run_cache).with_name("search.json")))
+    try:
+        yield
+    finally:
+        autotune.set_cache_path(run_cache)
+
+
+def tile_checks(lay, tag: str) -> dict:
+    """The three kernels with a runtime row tile at one FCDA chunk's layout
+    (``_chunk_cases``' ``lay``), in bf16: ragged_matmul in both layouts
+    (buf @ w1; h @ w1ᵀ, the backward's; h @ w2), fused_moe's down pass and
+    segment_outer (dw1 = bufᵀ @ h and dw2 = hᵀ @ buf, written), each at tm
+    64 and 128.  The two tiles' outputs must be bit-equal; each tile's
+    device ms is printed beside the bound, then ``autotune()`` searches the
+    two into the search cache (``tile_search``) and the line gives the
+    default, the winner and each candidate's median ms.  Returns {kernel
+    name: [row, ...]}."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.fused_moe import fused_moe
+    from repro_torch.kernels.ragged_mlp import ragged_matmul
+    from repro_torch.kernels.weight_grad import segment_outer
+
+    buf, h, w1, w3, w2, x_rows = (t.bfloat16() for t in (lay.buf, lay.h, lay.w1, lay.w3,
+                                                         lay.w2, lay.x_rows))
+    b2e, total, live, used = lay.b2e, lay.total, lay.live, lay.used
+    R, d = buf.shape
+    f, E, rows = h.shape[1], w1.shape[0], x_rows.shape[0]
+    wslot = torch.ones(R, dtype=torch.bfloat16, device=buf.device)
+    el = 2
+
+    def wgrad(a, b):
+        out = torch.empty((E, a.shape[1], b.shape[1]), dtype=a.dtype, device=a.device)
+        return lambda tm: segment_outer(a, b, b2e, total, BLOCK_M, out, accumulate=False,
+                                        tm=tm)
+    # (kernel, cache op, cache shape, label, fn(tm), bytes, flops)
+    cases = [
+        ("ragged_matmul", "ragged_matmul", (R, d, f, E, BLOCK_M), f"({R}, {d}) @ w1 ({d}, {f})",
+         lambda tm: ragged_matmul(buf, w1, b2e, total, BLOCK_M, tm=tm),
+         el * (live * d + used * d * f + R * f), 2 * live * d * f),
+        ("ragged_matmul", "ragged_matmul_t", (R, f, d, E, BLOCK_M),
+         f"({R}, {f}) @ w1^T ({f}, {d})",
+         lambda tm: ragged_matmul(h, w1, b2e, total, BLOCK_M, transpose_w=True, tm=tm),
+         el * (live * f + used * d * f + R * d), 2 * live * d * f),
+        ("ragged_matmul", "ragged_matmul", (R, f, d, E, BLOCK_M), f"({R}, {f}) @ w2 ({f}, {d})",
+         lambda tm: ragged_matmul(h, w2, b2e, total, BLOCK_M, tm=tm),
+         el * (live * f + used * f * d + R * d), 2 * live * d * f),
+        ("fused_moe", "fused_moe", (R, f, d, E, BLOCK_M),
+         f"T={rows} R={R} bm={BLOCK_M} E={E} d={d} f={f}",
+         lambda tm: fused_moe(x_rows, w1, w3, w2, lay.recv_src, wslot, total, b2e, tm=tm),
+         el * (2 * rows * d + 3 * used * d * f), 3 * 2 * live * d * f),
+        ("segment_outer", "segment_outer", (R, d, f, E, BLOCK_M),
+         f"dw1 = bufᵀ @ h (E={E}, K={d}, N={f}), written", wgrad(buf, h),
+         el * (live * (d + f) + E * d * f), 2 * live * d * f),
+        ("segment_outer", "segment_outer", (R, f, d, E, BLOCK_M),
+         f"dw2 = hᵀ @ buf (E={E}, K={f}, N={d}), written", wgrad(h, buf),
+         el * (live * (d + f) + E * d * f), 2 * live * d * f)]
+    out = {}
+    for name, op, shape, label, fn, nbytes, flops in cases:
+        default = _default_tile(op, shape)
+        first = {tm: fn(tm).clone() for tm in TILES}
+        torch.cuda.synchronize()
+        if not autotune.bit_equal(first[64], first[128]):
+            raise SystemExit(f"{name} {tag}{label}: tm 64 and tm 128 differ "
+                             f"(max |diff| {_max_err(first[64], first[128]):.3e})")
+        del first
+        ms = {tm: device_ms(lambda: fn(tm), 3, kernel_call=True)[0] for tm in TILES}
+        with tile_search():
+            res = autotune.autotune(op, shape, torch.bfloat16, lambda tm: (lambda: fn(tm)),
+                                    [{"tm": tm} for tm in TILES], baseline={"tm": default},
+                                    device=buf.device)
+        if res.skipped or res.refused:
+            raise SystemExit(f"{name} {tag}{label}: the search skipped {res.skipped} and "
+                             f"refused {res.refused}")
+        bms, by = _bound(nbytes, flops)
+        search = {c["tm"]: m for c, m in res.table}
+        out.setdefault(name, []).append({
+            "shape": f"{tag}{label}", "key": [op, *shape], "default_tm": default,
+            "winner_tm": res.winner["tm"], "ms_by_tm": ms, "search_ms_by_tm": search,
+            "spread_ms": res.spread_ms,
+            "bound_ms": bms, "bound_by": by})
+        print(f"tiles {name} {tag}{label}: tm 64 and 128 bit-equal | device ms: tm 64 "
+              f"{ms[64]:.4f} ({100 * bms / ms[64]:.1f}% of bound), tm 128 {ms[128]:.4f} "
+              f"({100 * bms / ms[128]:.1f}%) | bound {bms:.4f} ms ({by})", flush=True)
+        print(f"autotune {op} {'x'.join(map(str, shape))} bf16: default tm {default}, "
+              f"winner tm {res.winner['tm']} (x{res.speedup_vs_baseline:.3f} of the "
+              f"default); median ms: "
+              + ", ".join(f"tm {tm} {search[tm]:.4f}" for tm in TILES)
+              + f"; a winner must beat the default by the blocks' spread, "
+              f"{res.spread_ms:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 def _wgrad_close(got, want, s=None) -> bool:
@@ -1357,9 +1488,101 @@ def train_phase() -> dict:
     ce = trainer.log[0]["ce"]
     profile_step(trainer, state)
     check_peaks(fwd_bwd_peaks(trainer, state)[0])
+    forced_tiles_check(trainer, state)
     del trainer, state
     torch.cuda.empty_cache()
     return launches, ce
+
+
+def _default_tile(op: str, shape: tuple) -> int:
+    """The row tile a kernel's wrapper launches at ``shape`` (R, K, N, E,
+    bm) in bf16 when no ``tm`` is given and its cache holds nothing: the
+    wrapper's own rule, read from the run's cache, which stays empty."""
+    import torch
+    from repro_torch.kernels import autotune, ragged_mlp, weight_grad
+    if autotune.lookup(op, shape, torch.bfloat16) is not None:
+        raise SystemExit(f"the run's tile cache holds {op} at {shape}")
+    if op == "segment_outer":
+        return weight_grad.tuned_row_tile(shape, torch.bfloat16)
+    return ragged_mlp.tuned_row_tile(op, shape, shape[4])
+
+
+def _other_tile(op: str, shape: tuple):
+    """The row tile a kernel with a runtime tile takes at ``shape`` (R, K,
+    N, E, bm) besides its default, or None."""
+    from repro_torch.kernels.ragged_mlp import row_tile
+    if op == "segment_outer":
+        return 64 if shape[1] > 64 else None
+    bm = shape[4]
+    other = row_tile(bm)
+    return other if other != row_tile(bm, wide=True) else None
+
+
+def forced_tiles_check(trainer, state) -> None:
+    """One forward + backward of the trainer's model (full-width Mixtral at
+    2 layers) at MACT's schedule, from one state and one batch, twice: with
+    the default tiles (the run's empty cache), then under a cache that gives
+    every (op, shape) the first run looked up the other row tile.  Every
+    lookup of the second run must have returned it, and the loss and every
+    gradient must be bit-equal."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.optim.adamw import param_list
+    from repro_torch.training.step import loss_fn
+
+    chunks, depth = trainer.log[-1]["chunks"], trainer.log[-1]["pipeline"]
+    ctx = trainer._context_for((chunks, depth))[1]
+    batch = {k: torch.as_tensor(v[trainer._rows], device=ctx.device)
+             for k, v in trainer.data.batch_at(0).items()}
+    leaves = param_list(state.params)
+    run_cache, lookup = autotune.cache_path(), autotune.lookup
+    seen: dict = {}
+
+    def spy(op, shape, dtype):
+        got = lookup(op, shape, dtype)
+        seen.setdefault((op, tuple(shape), dtype), []).append(got)
+        return got
+
+    autotune.lookup = spy
+    try:
+        loss, _ = loss_fn(state.params, trainer.cfg, ctx, batch)
+        want = (loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True))
+        del loss
+        first = dict(seen)
+        if not first or any(v != [None] * len(v) for v in first.values()):
+            raise SystemExit(f"the default run looked up {len(first)} tiles, or found "
+                             f"one in the run's cache")
+        forced = {}
+        autotune.set_cache_path(str(Path(run_cache).with_name("forced.json")))
+        for (op, shape, dtype) in first:
+            forced[op, shape] = _other_tile(op, shape)
+            if forced[op, shape] is None:
+                raise SystemExit(f"{op} at {shape} has no other row tile to force")
+            autotune.record(op, shape, dtype, {"tm": forced[op, shape]})
+        seen.clear()
+        loss, _ = loss_fn(state.params, trainer.cfg, ctx, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+    finally:
+        autotune.lookup = lookup
+        autotune.set_cache_path(run_cache)
+    if {k: len(v) for k, v in seen.items()} != {k: len(v) for k, v in first.items()} or any(
+            got != {"tm": forced[op, shape]} for (op, shape, _), v in seen.items()
+            for got in v):
+        raise SystemExit("the forced run did not take the forced tile at every lookup")
+    same = torch.equal(loss.detach(), want[0]) and all(
+        (g is None and w is None) or (g is not None and w is not None and torch.equal(g, w))
+        for g, w in zip(grads, want[1]))
+    by_op: dict = {}
+    for (op, shape), tm in forced.items():
+        by_op.setdefault(op, []).append(f"{'x'.join(map(str, shape))}: tm {tm}")
+    print(f"forward + backward at (chunks {chunks}, depth {depth}) under forced tiles "
+          f"({sum(len(v) for v in seen.values())} launches over {len(forced)} (op, shape) "
+          f"keys: " + "; ".join(f"{op} {', '.join(v)}" for op, v in by_op.items())
+          + f"): loss {float(loss.detach()):.6f} and {sum(g is not None for g in grads)} gradients "
+          f"{'bit-equal to' if same else 'DIFFER from'} the default tiles'", flush=True)
+    if not same:
+        raise SystemExit("a forced row tile changed the loss or a gradient")
 
 
 def train_ragged_phase() -> dict:
@@ -2424,7 +2647,33 @@ def serve_phase():
               "streams": [r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
               "order": list(sched.admission_order),
               "waves": m["decode_waves"], "chunks": m["prefill_chunks"]}
+    reset_check(sched, served)
     return launches, served
+
+
+def reset_check(sched, served: dict) -> None:
+    """The serve phase's scheduler reset and run again on the same trace:
+    the streams, admission order and counts must equal the first run's, and
+    no graph may be captured (reset keeps the compiled steps, their graphs,
+    the static caches and the slot pool)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine
+
+    before = engine.step_cache_info()
+    sched.reset()
+    m = sched.run(serve.request_trace(serve.parse_args(SERVE_ARGS), sched.cfg))
+    after = engine.step_cache_info()
+    got = ([r.out for r in sorted(sched.finished, key=lambda r: r.rid)],
+           list(sched.admission_order), m["decode_waves"], m["prefill_chunks"])
+    same = got == (served["streams"], served["order"], served["waves"], served["chunks"])
+    captured = after["captures"] - before["captures"]
+    print(f"serve after reset(): {m['requests']} requests, {m['decode_waves']} decode "
+          f"waves, {m['prefill_chunks']} prefill chunks, {m['tok_per_s']:.1f} tok/s; "
+          f"streams, order and counts {'equal' if same else 'DIFFER from'} the first "
+          f"run's; {captured} graphs captured", flush=True)
+    if not same or captured:
+        raise SystemExit("the serve trace after reset() differs from the first run, or "
+                         "captured a graph")
 
 
 def _serve_run(args, params, profiler=None) -> dict:
@@ -3892,6 +4141,8 @@ def check_phase() -> None:
             raise SystemExit(f"the card disagrees with the CPU on the reduced training "
                              f"run of the {leg} leg (tolerance {tol})")
 
+    _check_selective(cfg)
+
     # the same on a 2x2 mesh: 4 gloo ranks on the card against 4 on the CPU
     import tempfile
     runs = {}
@@ -3929,6 +4180,75 @@ def check_phase() -> None:
             raise SystemExit(f"the 2x2 mesh's reduced training run of the {leg} leg: the "
                              f"card disagrees with the CPU (tolerance {tol}), or the "
                              f"ranks disagree")
+
+
+def _check_selective(cfg) -> None:
+    """Two reduced fp32 training steps under ``remat_policy="selective"`` on
+    the ragged leg, the card against the CPU from the same weights: losses
+    and grad norms within 1e-5, and on each device the attention's q, k and
+    v projections computed once a step (the backward recomputes the rest of
+    each layer from the saved projections).  Then, on the card, one forward
+    and backward of a batch under "none", "selective" and "full": the bytes
+    the forward leaves held for the backward must fall in that order, since
+    "selective" keeps q, k and v beside the layer's input and "none" keeps
+    every activation; the peaks are printed beside them."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.moe import DistContext
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import blocks, transformer
+    from repro_torch.optim.adamw import named_params
+    from repro_torch.training.step import loss_fn, make_train_state
+    from repro_torch.training.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg, remat_policy="selective")
+    n_attn = sum(spec.mixer == "attn" for spec in cfg.layer_specs())
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = DistContext(device=torch.device(dev), moe_strategy="ep_shardmap",
+                          moe_ragged=True)
+        params = transformer.init_params(cfg, device="cpu", seed=2)
+        trainer = Trainer(cfg, ctx, seq_len=128, global_batch=2, lr=1e-3)
+        blocks.qkv_proj.runs = 0
+        trainer.fit(2, make_train_state(_to(params, dev)))
+        runs[dev] = ([(r["loss"], r["grad_norm"]) for r in trainer.log], blocks.qkv_proj.runs)
+    diff = max(abs(a - b) for x, y in zip(runs["cpu"][0], runs["cuda"][0])
+               for a, b in zip(x, y))
+    print(f"reduced {cfg.name} fp32, 2 training steps on the ragged leg under selective "
+          f"remat: (loss, grad norm) card {runs['cuda'][0]} cpu {runs['cpu'][0]}, max "
+          f"|card - cpu| = {diff:.3e}; q, k, v projections computed card "
+          f"{runs['cuda'][1]} / cpu {runs['cpu'][1]} times ({n_attn} attention layers, "
+          f"2 steps)", flush=True)
+    if not diff <= 1e-5 or {runs[d][1] for d in runs} != {2 * 3 * n_attn}:
+        raise SystemExit("selective remat: the card disagrees with the CPU (tolerance "
+                         "1e-5), or a step recomputed the q, k, v projections")
+
+    dev = torch.device("cuda")
+    ctx = DistContext(device=dev, moe_strategy="ep_shardmap", moe_ragged=True)
+    params = _to(transformer.init_params(cfg, device="cpu", seed=2), dev)
+    leaves = [p.requires_grad_() for _, p in named_params(params)]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in SyntheticLMData(cfg, 1024, 2, seed=1).batch_at(0).items()}
+    mem = {}
+    for policy in ("none", "selective", "full"):
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = loss_fn(params, pcfg, ctx, batch)
+        held = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        mem[policy] = (held, torch.cuda.max_memory_allocated() - base)
+        del loss, grads
+    print(f"reduced {cfg.name} fp32, one forward and backward of 2 x 1024 tokens on the "
+          f"ragged leg: bytes held for the backward / forward + backward peak above the "
+          f"weights: " + ", ".join(f"{p} {h} / {k}" for p, (h, k) in mem.items()),
+          flush=True)
+    if not mem["none"][0] > mem["selective"][0] > mem["full"][0]:
+        raise SystemExit("selective remat: the forward did not hold fewer bytes than "
+                         "'none' and more than 'full'")
 
 
 def _check_state_model(arch: str) -> None:
@@ -4064,6 +4384,22 @@ def main() -> int:
               "(src/repro_torch not found beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import autotune
+    # the tile cache of this run: empty, so every phase runs the default
+    # tiles whatever a cache under $HOME holds (spawned ranks inherit it)
+    tile_dir = tempfile.mkdtemp(prefix="chip-smoke-tiles-")
+    autotune.set_cache_path(os.path.join(tile_dir, "autotune.json"))
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(tile_dir, ignore_errors=True)
+
+
+def run_phases() -> int:
+    import torch
     card = device_phase()
     build_phase()
     entries = kernels_phase()

@@ -103,6 +103,11 @@ class ModelConfig:
     def num_periods(self) -> int:
         return (self.num_layers - len(self.prefix)) // len(self.pattern)
 
+    @property
+    def remainder_layers(self) -> int:
+        """Layers past the last whole period of the pattern."""
+        return (self.num_layers - len(self.prefix)) % len(self.pattern)
+
     def reduced(self, *, d_model: int = 256, max_experts: int = 4) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=512, <=4 experts, same
         family -- the same reduction as the JAX package's, field for field."""

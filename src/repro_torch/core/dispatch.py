@@ -101,6 +101,25 @@ def make_unified_plan(expert_idx: torch.Tensor, num_experts: int,
                        drops_send, drops_expert)
 
 
+def make_plan(group_idx: torch.Tensor, num_groups: int, capacity: int) -> DispatchPlan:
+    """group_idx: (T, K) int32 in [0, num_groups) -> the scatter plan into
+    (num_groups, capacity) buffers: each token-slot's rank within its group
+    by one stable argsort, slots past ``capacity`` dropped (-1) and
+    counted."""
+    T, K = group_idx.shape
+    dev = group_idx.device
+    flat = group_idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)                  # token-slots grouped
+    sorted_g = flat[order]
+    load = torch.zeros(num_groups, dtype=torch.long, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ranks = torch.arange(T * K, device=dev) - _exclusive_cumsum(load)[sorted_g]
+    ok = ranks < capacity
+    slots = _unsort(torch.where(ok, sorted_g * capacity + ranks, -1), order)
+    drops = (T * K - ok.sum()).to(torch.int32)
+    return DispatchPlan(slots.reshape(T, K).to(torch.int32), load.to(torch.int32), drops)
+
+
 def scatter_rows(x: torch.Tensor, plan: DispatchPlan, num_groups: int,
                  capacity: int) -> torch.Tensor:
     """x: (T, d) -> buffer (G, capacity, d); each token copied to its K slots.
@@ -114,6 +133,18 @@ def scatter_rows(x: torch.Tensor, plan: DispatchPlan, num_groups: int,
     buf = x.new_zeros((rows + 1, d))
     buf[idx] = x.repeat_interleave(K, dim=0)
     return buf[:rows].reshape(num_groups, capacity, d)
+
+
+def scatter_values(vals: torch.Tensor, plan: DispatchPlan, num_groups: int,
+                   capacity: int, fill=0) -> torch.Tensor:
+    """vals: (T, K) per-slot payload (e.g. expert ids) -> (G, capacity),
+    ``fill`` where no slot landed."""
+    rows = num_groups * capacity
+    flat_slots = plan.slots.reshape(-1).long()
+    idx = torch.where(flat_slots >= 0, flat_slots, rows)
+    out = torch.full((rows + 1,), fill, dtype=vals.dtype, device=vals.device)
+    out[idx] = vals.reshape(-1)
+    return out[:rows].reshape(num_groups, capacity)
 
 
 def gather_rows(buf: torch.Tensor, plan: DispatchPlan,

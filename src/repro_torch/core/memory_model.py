@@ -192,6 +192,17 @@ def total_params(cfg: ModelConfig) -> float:
     return sum(param_counts(cfg, Parallelism()).values())
 
 
+def active_params(cfg: ModelConfig) -> float:
+    """Parameters a token activates: the MoE experts' count scaled by
+    top_k / num_experts (shared experts and the rest whole), for a model
+    FLOPs count of 6 N_active D."""
+    counts = param_counts(cfg, Parallelism())
+    n = sum(v for k, v in counts.items() if k != "moe_experts")
+    if cfg.moe is not None:
+        n += counts["moe_experts"] * (cfg.moe.top_k / cfg.moe.num_experts)
+    return n
+
+
 # ---------------------------------------------------------------------------
 # MACT equations (Eq. 3, 8, 9)
 # ---------------------------------------------------------------------------

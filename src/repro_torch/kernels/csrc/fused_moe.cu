@@ -32,7 +32,8 @@
 //     (TMA cannot gather), the weights by TMA; silu(a) * b taken in
 //     registers and stored as bf16 pairs.  Down: ragged_matmul's
 //     configuration (128 x 256 tiles, or 64 x 256 when bm is not a multiple
-//     of 128) on h @ w2, with the combine as its epilogue.
+//     of 128 or the tile cache says 64) on h @ w2, with the combine as its
+//     epilogue.
 //   fp32: the simple tiled loop of ragged_tile.cuh, one block per 64 x 64
 //     tile, for both passes.
 //
@@ -102,7 +103,10 @@ int launch_down(const void* h, const void* w2, const rw::Rows& p, const FusedCom
   return rw::launch<C>(h_map, w2_map, w2_map, p, epi, s);
 }
 
-// the up and down passes; tm: the rows a tile keeps (128, 64 or bm < 64)
+// the up and down passes; tm: the rows a down-pass tile keeps (128, 64 or
+// bm < 64).  The up pass's tile is 128 rows of two weights: it keeps 128
+// rows when bm is a multiple of 128, whatever tile the down pass runs
+// (kernels/fused_moe.py tunes only the down pass's), else tm.
 int launch_passes_bf16(const void* x, const void* w1, const void* w3, const void* w2,
                        const void* src, const void* wslot, const void* b2e,
                        const void* total_rows, void* h, float* acc, int R, int d, int f, int E,
@@ -113,7 +117,7 @@ int launch_passes_bf16(const void* x, const void* w1, const void* w3, const void
   if (err) return err;
   if ((err = rw::map_weights(&w3_map, w3, E, d, f, false, Up::BN))) return err;
   const rw::Rows up{(const int*)b2e, (const int*)total_rows, (const int*)src,
-                    (const __nv_bfloat16*)x, R, d, f, bm, tm};
+                    (const __nv_bfloat16*)x, R, d, f, bm, bm % 128 == 0 ? 128 : tm};
   // A's rows are gathered, so its map is never read: w1's stands in
   if ((err = rw::launch<Up>(w1_map, w1_map, w3_map, up,
                             FusedUpStore{(__nv_bfloat16*)h, f}, s)))
@@ -204,7 +208,8 @@ int launch(const void* x, const void* w1, const void* w3, const void* w2, const 
 // the first CUDA error of the memset and launches (0 = all launched).
 // h: (R, f) workspace in x's type; acc: (T, d) fp32 output; out: (T, d)
 // bf16 (the bf16 entry point casts acc into it); E experts; tm: the rows a
-// tile keeps (kernels/ragged_mlp.py::row_tile, wide for bf16).
+// tile keeps (fp32: kernels/ragged_mlp.py::row_tile; bf16: the down pass's,
+// kernels/ragged_mlp.py::tuned_row_tile).
 extern "C" int fused_moe_bf16(const void* x, const void* w1, const void* w3, const void* w2,
                               const void* src, const void* wslot, const void* b2e,
                               const void* total_rows, void* h, void* acc, void* out, int T,

@@ -102,8 +102,8 @@ int launch_swiglu_bf16(const void* x, const void* w1, const void* w3, void* out,
   return rw::launch<C>(a_map, w1_map, w3_map, p, SwigluStore{(__nv_bfloat16*)out, N}, stream);
 }
 
-// tm: the rows a tile keeps, 128 when bm is a multiple of 128 (128-row
-// tiles), else 64 or bm (64-row tiles).
+// tm: the rows a tile keeps, 128 (128-row tiles; bm a multiple of 128), or
+// 64 or bm (64-row tiles); kernels/ragged_mlp.py::tuned_row_tile picks it.
 int launch_bf16(const void* x, const void* w, void* out, const void* b2e, const void* total_rows,
                 int R, int K, int N, int E, int bm, int tm, int trans, cudaStream_t stream) {
   if (tm == 128)

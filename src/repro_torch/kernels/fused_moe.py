@@ -8,7 +8,10 @@ never exists.  On a CUDA tensor it launches the kernels of
 combine, cast; bf16 runs both passes on the Hopper mainloop of
 ``csrc/ragged_wgmma.cuh``, fp32 on the tile loop of ``csrc/ragged_tile.cuh``);
 on a CPU tensor it computes the plain version of ``kernels/ref.py``.  It
-counts its calls on the card in ``.launches``.
+counts its calls on the card in ``.launches``.  In bf16 the down pass takes
+its row tile at run time (``ragged_mlp.tuned_row_tile``, cached as
+``fused_moe`` at (R, f, d, E, bm)); the up pass gathers its rows and takes
+two weights, so its tile keeps 128 rows wherever bm allows.
 """
 
 from __future__ import annotations
@@ -18,15 +21,16 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _cuda, ref
-from repro_torch.kernels.ragged_mlp import row_tile
+from repro_torch.kernels.ragged_mlp import row_tile, tuned_row_tile
 
 
 def fused_moe(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
               src: torch.Tensor, wslot: Optional[torch.Tensor], total_rows,
-              block_to_expert: torch.Tensor) -> torch.Tensor:
+              block_to_expert: torch.Tensor, *, tm: Optional[int] = None) -> torch.Tensor:
     """x: (T, d) tokens; w1, w3: (E, d, f); w2: (E, f, d); src: (R,) token
     of each buffer row (-1 = empty); wslot: (R,) per-row combine weight
-    (None = 1); block_to_expert: (R // bm,) -> (T, d) in x's type."""
+    (None = 1); block_to_expert: (R // bm,) -> (T, d) in x's type.  ``tm``:
+    the bf16 down pass's row tile, over the tile cache's."""
     T, d = x.shape
     E, _, f = w1.shape
     R = src.shape[0]
@@ -46,7 +50,10 @@ def fused_moe(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Ten
     if d % 8 or f % 8:
         raise ValueError(f"{op}: d={d} and f={f} must be multiples of 8")
     bm = R // nb
-    tm = row_tile(bm, wide=x.dtype == torch.bfloat16)
+    if x.dtype == torch.bfloat16:
+        tm = tuned_row_tile(op, (R, f, d, E, bm), bm, tm)     # the down pass's
+    else:
+        tm = row_tile(bm)
     src = _cuda.index32(src, x.device)
     b2e = _cuda.index32(block_to_expert, x.device)
     if wslot is None:

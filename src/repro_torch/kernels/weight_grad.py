@@ -10,7 +10,10 @@ MoE layer keeps one gradient buffer per expert weight across its FCDA
 chunks (``kernels/ops.py``).  On a CUDA tensor it launches its kernel of
 ``csrc/weight_grad.cu``, picked by dtype: bf16 a TMA + ``wgmma`` kernel,
 fp32 a plain FMA tile loop.  On a CPU tensor it computes the plain version
-of ``kernels/ref.py``.  It counts its kernel launches in ``.launches``.
+of ``kernels/ref.py``.  It counts its kernel launches in ``.launches``.  The
+bf16 kernel takes its output tile's rows of K at run time: the autotuner's
+cached winner for (R, K, N, E, bm) where the kernel takes it (128 only when
+K > 64), else 128, or 64 when K <= 64 (``kernels/tiling.py``).
 """
 
 from __future__ import annotations
@@ -18,17 +21,31 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _cuda, ref
+from repro_torch.kernels.tiling import resolve_tm
+
+
+def tuned_row_tile(shape: tuple, dtype, tm=None) -> int:
+    """The kernel's output-tile rows at ``shape`` (R, K, N, E, bm): 128, or
+    64 when K <= 64; in bf16, ``tm`` if given, else the autotuner's cached
+    winner, when the kernel takes it (64 always, 128 at K > 64)."""
+    K = shape[1]
+    default = 128 if K > 64 else 64
+    if dtype != torch.bfloat16:
+        return default
+    return resolve_tm("segment_outer", shape, dtype, default,
+                      (64, 128) if K > 64 else (64,), tm)
 
 
 def segment_outer(a: torch.Tensor, b: torch.Tensor, block_to_expert: torch.Tensor,
                   total_rows, block_m: int, out: torch.Tensor, *,
-                  accumulate: bool) -> torch.Tensor:
+                  accumulate: bool, tm=None) -> torch.Tensor:
     """a (R, K), b (R, N) bm-aligned expert-grouped rows -> out (E, K, N):
     out[e] (+)= the sum over the row blocks of expert e that start below
     ``total_rows`` of a_blockᵀ @ b_block, fp32 sums; with ``accumulate``
     the sum, cast to out's type, is added into out in fp32 and cast again
     (``ref.segment_outer_ref``).  The bf16 kernel's output tiles are 128
-    rows of K, or 64 when K <= 64.  Returns out."""
+    rows of K, or 64 when K <= 64, unless ``tm`` or the tile cache says
+    64.  Returns out."""
     R, K = a.shape
     E = out.shape[0]
     if b.dim() != 2 or b.shape[0] != R or out.shape != (E, K, b.shape[1]):
@@ -55,9 +72,10 @@ def segment_outer(a: torch.Tensor, b: torch.Tensor, block_to_expert: torch.Tenso
     _cuda.operands("segment_outer", (a, b, out, b2e), a.dtype, a.device)
     if out.numel() == 0:
         return out
+    tm = tuned_row_tile((R, K, N, E, block_m), a.dtype, tm)
     _cuda.launch("weight_grad", f"segment_outer_{_cuda.SUFFIX[a.dtype]}",
                  [a, b, out, b2e, _cuda.total_rows_on(total_rows, a.device), R, K, N, E,
-                  block_m, 128 if K > 64 else 64, int(accumulate)], a.device)
+                  block_m, tm, int(accumulate)], a.device)
     segment_outer.launches += 1
     return out
 

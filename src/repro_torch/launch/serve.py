@@ -168,6 +168,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def request_trace(args: argparse.Namespace, cfg) -> list:
+    """The seeded request trace ``args`` describes, made anew (a run
+    mutates its requests)."""
+    import numpy as np
+
+    prompt_lens = [int(s) for s in args.prompt_lens.split(",")]
+    gen_lo, gen_hi = (int(s) for s in args.gen.split(","))
+    return make_trace(np.random.default_rng(args.seed), args.requests,
+                      args.arrival_rate, prompt_lens, (gen_lo, gen_hi),
+                      cfg.vocab_size, args.prefill_chunk)
+
+
 def setup(args: argparse.Namespace, params: dict | None = None):
     """Weights on the device, the scheduler and the request trace; returns
     (scheduler, trace).  ``params``: weights that ``args`` already built,
@@ -212,12 +224,9 @@ def setup(args: argparse.Namespace, params: dict | None = None):
                                          dtype=getattr(torch, dtype),
                                          seed=args.seed)
 
-    rng = np.random.default_rng(args.seed)
+    trace = request_trace(args, cfg)
     prompt_lens = [int(s) for s in args.prompt_lens.split(",")]
-    gen_lo, gen_hi = (int(s) for s in args.gen.split(","))
-    trace = make_trace(rng, args.requests, args.arrival_rate, prompt_lens,
-                       (gen_lo, gen_hi), cfg.vocab_size, args.prefill_chunk)
-
+    gen_hi = int(args.gen.split(",")[1])
     cache_len = args.cache_len or max(prompt_lens) + gen_hi
     hw = H100_80G
     if args.budget_gb:

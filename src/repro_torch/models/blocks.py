@@ -27,10 +27,11 @@ keeps the weights' type.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.chunking import ScheduleSpec
@@ -70,15 +71,56 @@ def layer_ctx(ctx: DistContext, moe_index: Optional[int]) -> DistContext:
 # attention mixer
 # ---------------------------------------------------------------------------
 
+@torch.library.custom_op("repro_torch::qkv_proj", mutates_args=())
+def qkv_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for one of the attention mixer's q, k and v projections under
+    autograd at ``remat_policy="selective"``: an operator of its own, so
+    that the policy can save its output (``apply_layer``).  ``qkv_proj.runs`` counts the
+    products it computed; a saved one is not computed again."""
+    qkv_proj.runs += 1
+    return x @ w
+
+
+qkv_proj.runs = 0
+
+
+def _qkv_proj_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _qkv_proj_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g.reshape(-1, g.shape[-1])
+    return g @ w.transpose(0, 1), gw
+
+
+torch.library.register_autograd("repro_torch::qkv_proj", _qkv_proj_backward,
+                                setup_context=_qkv_proj_context)
+
+
+REMAT_POLICIES = ("none", "full", "memfine", "selective")
+# the "selective" policy: save the q, k and v projections, recompute the rest
+_SAVE_QKV = functools.partial(create_selective_checkpoint_contexts,
+                              [torch.ops.repro_torch.qkv_proj.default])
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x @ w; under autograd at ``remat_policy="selective"``, through
+    ``qkv_proj``, whose output that policy saves."""
+    if cfg.remat_policy == "selective" and torch.is_grad_enabled():
+        return qkv_proj(x, w)
+    return x @ w
+
+
 def _qkv_base(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
               positions: torch.Tensor):
     """Projections + qk-norm + RoPE, KV still at KH heads (the cache layout).
     positions: (B, S) int."""
     B, S, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    q = _project(x, p["wq"], cfg).reshape(B, S, H, hd)
+    k = _project(x, p["wk"], cfg).reshape(B, S, KH, hd)
+    v = _project(x, p["wv"], cfg).reshape(B, S, KH, hd)
     if "q_norm" in p:
         q = apply_norm(p["q_norm"], q)
         k = apply_norm(p["k_norm"], k)
@@ -373,7 +415,15 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
     Under autograd without a cache, ``remat_policy`` "full" or "memfine"
     wraps the layer in a non-reentrant checkpoint (Megatron full
     recomputation); the MoE's per-chunk checkpoints nest inside it, as the
-    JAX package's nested ``jax.checkpoint``s do.  A mamba layer's cache is
+    JAX package's nested ``jax.checkpoint``s do.  "selective" checkpoints
+    it under a selective policy that saves the attention mixer's q, k and
+    v, as the JAX package's ``save_only_these_names("qkv")`` does: the
+    saved tensors are the three projections' outputs (``qkv_proj``), so the
+    backward's recompute does not run the projections again; RoPE and the
+    qk-norm, elementwise, are recomputed from them.  (PyTorch's policy
+    re-runs every operator it does not save, so saving q, k and v after
+    RoPE, where the JAX package names them, would still re-run the
+    projections that XLA drops as dead code.)  A mamba layer's cache is
     its SSD state after the prompt and the prompt's last w-1 conv inputs;
     an encoder-decoder layer's also holds the cross K/V of ``enc_out``."""
     cross = "cross" in params and enc_out is not None
@@ -407,9 +457,15 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
         x, stats = _ffn(params, x, spec, cfg, ctx)
         return x, stats if stats is not None else zero_stats(cfg, x.device)
 
-    if cfg.remat_policy in ("full", "memfine") and torch.is_grad_enabled():
-        return checkpoint(layer_fn, x, use_reentrant=False)
-    return layer_fn(x)
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: the port implements "
+                         f"{REMAT_POLICIES}")
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return layer_fn(x)
+    if cfg.remat_policy == "selective":
+        return checkpoint(layer_fn, x, use_reentrant=False, context_fn=_SAVE_QKV)
+    return checkpoint(layer_fn, x, use_reentrant=False)
+
 
 
 def _row_load(stats: Optional[dict], cfg: ModelConfig, x: torch.Tensor):

@@ -77,6 +77,22 @@ class PagedScheduler(ContinuousBatchingScheduler):
     def _make_slot_pool(self):
         return None                     # the page pools replace the slot pool
 
+    def reset(self) -> None:
+        """Release every request's pages, clear the prefix trie and the
+        state snapshots, then the base reset: the pools and the paged decode
+        graph stay."""
+        for req in list(self.active.values()):
+            self.pool.release(req.rp)
+        if self._prefilling is not None and self._prefilling.rp is not None:
+            self.pool.release(self._prefilling.rp)
+        if self.trie is not None:
+            self.trie.clear()
+        super().reset()
+        self.preemptions = 0
+        self.prefix_evictions = 0
+        self._snapshots.clear()
+        self._shared_len.clear()
+
     def _fault_hook(self, where: str) -> None:
         self.injector.maybe_fail_step(self.steps, where)
 

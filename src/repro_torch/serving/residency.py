@@ -149,10 +149,7 @@ class ExpertResidency:
         self.resident: List[set] = [set(range(self.num_experts))
                                     for _ in range(self.num_layers)]
         self.heat = np.zeros((self.num_layers, self.num_experts))
-        self.restores = 0          # expert-layer rows streamed host -> device
-        self.offloads = 0          # expert-layer rows zeroed on the device
-        self.demand_restores = 0   # restores a run had to wait for (misses)
-        self.hwm_experts = self.num_experts
+        self.reset_stats()
         for w in keys:
             _HOLDERS[w] = self
 
@@ -160,6 +157,14 @@ class ExpertResidency:
         return params["layers"][self.refs[layer]]["ffn"]
 
     # -- accounting ----------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        """Zero the transfer counters; the high-watermark restarts at the
+        resident sets' largest."""
+        self.restores = 0          # expert-layer rows streamed host -> device
+        self.offloads = 0          # expert-layer rows zeroed on the device
+        self.demand_restores = 0   # restores a run had to wait for (misses)
+        self.hwm_experts = max(len(s) for s in self.resident)
 
     def stats(self) -> dict:
         return {"restores": self.restores, "offloads": self.offloads,

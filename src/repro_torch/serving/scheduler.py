@@ -225,6 +225,32 @@ class ContinuousBatchingScheduler:
         self.prefetch_misses = 0       # resident / restored on demand
         self.demand_reruns = 0         # wave/chunk re-runs after a restore
 
+    def reset(self) -> None:
+        """Clear the request state, counters, wave statistics and telemetry,
+        and keep the compiled steps, their CUDA graphs, the static caches
+        and the slot pool: a benchmark warms the steps with a throwaway
+        trace, resets, then times a steady state that captures nothing.
+        The residency tier keeps its resident sets and zeroes its
+        counters."""
+        self.queue.clear()
+        self.active.clear()
+        self.free_slots = list(range(self.scfg.max_slots))
+        self._prefilling = None
+        self.steps = self.decode_waves = self.prefill_chunks = 0
+        self.max_occupancy = 0
+        self.modeled_peak = 0.0
+        self.nonfinite_logits = 0
+        self.admission_order = []
+        self.finished = []
+        self.shed = []
+        self.requeued = 0
+        self.faults = 0
+        self._reset_wave_stats()
+        if self.telemetry is not None:
+            self.telemetry.clear()
+        if self.residency is not None:
+            self.residency.reset_stats()
+
     def close(self) -> None:
         """Hand the weights back whole: the residency tier restores every
         offloaded expert in place (schedulers sharing one ``params`` see each

@@ -26,7 +26,9 @@ Each step:
 
 Under a mesh (``ctx.mesh``, ``launch/mesh.py``) of D x P ranks, MACT plans
 with ``Parallelism(e=P, b=global_batch // D)``, as the JAX trainer does for
-that mesh.  The tokens are partitioned by whole sequences: rank r = i P + j
+that mesh, unless ``par`` names another (the rows each rank takes still
+come from the mesh); ``static_override`` replaces MACT's modeled static
+bytes (``core/mact.py``).  The tokens are partitioned by whole sequences: rank r = i P + j
 takes rows [r b, (r+1) b) of the step's global batch, b = global_batch /
 (D P), so attention stays on the rank and the EP ranks are data-parallel
 ranks, as in the paper's Megatron layout.  (The JAX package cuts the
@@ -94,10 +96,12 @@ class Trainer:
     seed: int = 0
     dtype: torch.dtype = torch.float32
     hw: HardwareProfile = H100_80G
+    par: Optional[Parallelism] = None    # MACT's plan (default: the mesh's)
     mact_bins: tuple = (1, 2, 4, 8)
     use_mact: bool = True
     max_pipeline_depth: int = 2          # MACT may pick depth in [1, this]
     mact_ep_view: Optional[int] = None   # plan as if over this many EP peers
+    static_override: Optional[float] = None   # MACT's static bytes, if given
     adaptive_mact: bool = False          # per-layer schedules from telemetry
     replan_interval: int = 1             # steps between adaptive re-plans
     mact_hysteresis: float = 0.1         # load-margin band for schedule moves
@@ -135,14 +139,16 @@ class Trainer:
         if self.global_batch % (D * P):
             raise ValueError(f"global batch {self.global_batch} does not split "
                              f"into whole sequences over {D * P} ranks")
-        self.par = Parallelism(e=P if self.cfg.moe is not None else 1,
-                               b=max(1, self.global_batch // D))
+        if self.par is None:
+            self.par = Parallelism(e=P if self.cfg.moe is not None else 1,
+                                   b=max(1, self.global_batch // D))
+        self._peers = P if self.cfg.moe is not None else 1   # the mesh's EP group
         rows = self.global_batch // (D * P)
         rank = mesh.rank if mesh is not None else 0
         self._rows = slice(rank * rows, (rank + 1) * rows)
         self.mact = MACTController(
             self.cfg, self.par, self.hw, self.seq_len, bins=self.mact_bins,
-            fused=self.ctx.moe_fused,
+            static_override=self.static_override, fused=self.ctx.moe_fused,
             replica_slots=self.placement_replicas if self.use_placement else 0)
         self.data = SyntheticLMData(self.cfg, self.seq_len, self.global_batch,
                                     self.seed)
@@ -185,6 +191,9 @@ class Trainer:
         return self.mact.choose_schedule(self._last_load, ep_size=ep_view,
                                          max_depth=max_depth)
 
+    def choose_chunks(self) -> int:
+        return self.choose_schedule()[0]
+
     def choose_layer_schedules(self) -> tuple:
         """The per-layer ScheduleSpec vector for the next step (adaptive
         MACT): re-planned from the telemetry EMA at cold start and every
@@ -206,7 +215,7 @@ class Trainer:
         planning view (a run at one peer plans and prices placements as it
         plans schedules; core/ep.py does not apply them there)."""
         if self.ctx.mesh is not None:
-            return max(self.par.e, 1)
+            return self._peers
         return self.mact_ep_view or max(self.par.e, 1)
 
     def choose_placements(self) -> Optional[tuple]:
@@ -500,7 +509,7 @@ class Trainer:
                    "tgs": tgs, "max_load": float(load.max()),
                    "drops": float(metrics["drops"]),
                    "oom_retries": len(self.guard.escalations) - n_esc}
-            if self.par.e > 1:
+            if self._peers > 1:
                 rec["recv_by_peer"] = self._recv_by_peer(load, per_layer).tolist()
             imb = self.telemetry.imbalance()
             if imb is not None:
@@ -535,8 +544,8 @@ class Trainer:
         replicas' share split evenly (the placement's model of the split)."""
         p = self._placements
         if (p is None or per_layer is None or self.ctx.mesh is None
-                or p[0].num_peers != self.par.e):
-            return load.reshape(self.par.e, -1).sum(1)
+                or p[0].num_peers != self._peers):
+            return load.reshape(self._peers, -1).sum(1)
         return sum(spec.peer_loads(row) for spec, row in zip(p, per_layer))
 
     def _fold_peak(self, nbytes: int) -> None:

@@ -1650,3 +1650,141 @@ def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     for a, b in zip(param_list(got.params) + got.opt.mu + got.opt.nu,
                     param_list(saved.params) + saved.opt.mu + saved.opt.nu):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# runtime row tiles: the bf16 ragged_matmul, fused_moe's down pass and
+# segment_outer at tm 64 and 128, bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tile_cache(tmp_path):
+    from repro_torch.kernels import autotune
+    path = str(tmp_path / "autotune.json")
+    autotune.set_cache_path(path)
+    yield path
+    autotune.set_cache_path(None)
+
+
+def _tile_blocks(nb, E, bm, seed):
+    """Row blocks of ascending experts over E experts, one of them (and the
+    last) empty, and a routed length that ends mid-block with dead blocks
+    past it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    used = torch.tensor([e for e in range(E - 1) if e != 1])
+    b2e = torch.sort(used[torch.randint(0, len(used), (nb,), generator=g)]).values
+    total = torch.tensor((nb - 2) * bm - bm // 2 - 3, dtype=torch.int32)
+    return b2e.to(torch.int32), total, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_ragged_matmul_bf16_tiles_are_bit_equal(cuda, tile_cache, bm, trans):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ragged_mlp import tuned_row_tile
+    nb, E, K, N = 7, 5, 200, 328
+    b2e, total, g = _tile_blocks(nb, E, bm, seed=bm + trans)
+    x = torch.randn((nb * bm, K), generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn((E, N, K) if trans else (E, K, N), generator=g) * K ** -0.5).to(
+        cuda, torch.bfloat16)
+    b2e, total = b2e.to(cuda), total.to(cuda)
+    got = {tm: ragged_matmul(x, w, b2e, total, bm, transpose_w=trans, tm=tm)
+           for tm in (64, 128)}
+    assert torch.equal(got[64], got[128])
+    assert (got[64][int(total):] == 0).all()
+    _assert_close(got[64], ref.ragged_matmul_ref(x, w.transpose(1, 2) if trans else w,
+                                                 b2e, total), torch.bfloat16)
+    # through the cache as the path calls it: a cached 64 is taken
+    op = "ragged_matmul_t" if trans else "ragged_matmul"
+    shape = (nb * bm, K, N, E, bm)
+    autotune.record(op, shape, torch.bfloat16, {"tm": 64})
+    assert tuned_row_tile(op, shape, bm) == 64
+    assert torch.equal(ragged_matmul(x, w, b2e, total, bm, transpose_w=trans), got[128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_fused_moe_bf16_down_tiles_are_bit_equal(cuda, tile_cache, bm, K):
+    """The down pass at 64- and 128-row tiles, the up pass at 128 rows
+    either way; at most two rows per token, so the atomic combine is
+    order-free (0 + a + b).  Each expert's group ends in a partial block
+    (padding rows), and dead blocks follow the routed ones."""
+    (x, w1, w3, w2, wslot, _), (_, b2e, total, src), R = _ragged_case(
+        200, K, 6, 136, 264, bm, torch.bfloat16, cuda, seed=bm + K, skew=True, dead=2)
+    assert (src[:int(total)] < 0).any() and int(total) < R - bm
+    got = {tm: fused_moe(x, w1, w3, w2, src, wslot, total, b2e, tm=tm) for tm in (64, 128)}
+    assert torch.equal(got[64], got[128])
+    _assert_close(got[64], ref.fused_moe_rows_ref(x, w1, w3, w2, src, wslot, b2e, total),
+                  torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_segment_outer_bf16_tiles_are_bit_equal(cuda, tile_cache, bm, accumulate):
+    nb, E, K, N = 6, 5, 200, 264
+    b2e, total, g = _tile_blocks(nb, E, bm, seed=3 * bm + accumulate)
+    a, b = (torch.randn((nb * bm, n), generator=g).to(cuda, torch.bfloat16) for n in (K, N))
+    old = torch.randn((E, K, N), generator=g).to(cuda, torch.bfloat16)
+    b2e, total = b2e.to(cuda), total.to(cuda)
+    got = {tm: segment_outer(a, b, b2e, total, bm, old.clone(), accumulate=accumulate,
+                             tm=tm) for tm in (64, 128)}
+    assert torch.equal(got[64], got[128])
+    _assert_wgrad_close(got[64], ref.segment_outer_ref(a, b, b2e, total, old.clone(),
+                                                       accumulate),
+                        a, b, b2e, total, accumulate)
+    for e in (1, E - 1):                           # experts with no rows
+        assert torch.equal(got[64][e], old[e] if accumulate else torch.zeros_like(old[e]))
+
+
+@pytest.mark.cuda
+def test_autotune_on_the_card_persists_a_winner(cuda, tile_cache):
+    from repro_torch.kernels import autotune
+    a, b, b2e, total, old = _wgrad_case(12, 10, 4, 512, 1024, 128, seed=9, device=cuda)
+    a, b, old = a.bfloat16(), b.bfloat16(), old.bfloat16()
+    shape = (a.shape[0], 512, 1024, 4, 128)
+
+    def make_fn(tm):
+        return lambda: segment_outer(a, b, b2e, total, 128, torch.empty_like(old),
+                                     accumulate=False, tm=tm)
+    res = autotune.autotune("segment_outer", shape, torch.bfloat16, make_fn,
+                            [{"tm": 64}, {"tm": 128}], baseline={"tm": 128}, device=cuda)
+    assert not res.skipped and not res.refused
+    assert {tuple(c.items()) for c, _ in res.table} == {(("tm", 64),), (("tm", 128),)}
+    assert all(ms > 0 for _, ms in res.table) and res.baseline_ms is not None
+    assert autotune.lookup("segment_outer", shape, torch.bfloat16) == res.winner
+    autotune.set_cache_path(tile_cache)                 # read back from the file
+    assert autotune.lookup("segment_outer", shape, torch.bfloat16) == res.winner
+    assert autotune.device_kind() == torch.cuda.get_device_name().replace(" ", "_")
+
+
+@pytest.mark.cuda
+def test_an_illegal_cached_tile_is_replaced_by_the_default(cuda, tile_cache):
+    """128 rows at bm 64 (ragged_matmul, fused_moe) and at K 64
+    (segment_outer) are not tiles these kernels take: the wrappers launch
+    the default instead, and raise nothing."""
+    from repro_torch.kernels import autotune
+    bm = 64
+    x, w, b2e, total = (t.to(cuda) for t in _blocked_case(6, 5, 3, 64, 200, bm, False,
+                                                          seed=11))
+    x, w = x.bfloat16(), w.bfloat16()
+    want = ragged_matmul(x, w, b2e, total, bm)
+    autotune.record("ragged_matmul", (x.shape[0], 64, 200, 3, bm), torch.bfloat16,
+                    {"tm": 128})
+    assert torch.equal(ragged_matmul(x, w, b2e, total, bm), want)
+    assert torch.equal(ragged_matmul(x, w, b2e, total, bm, tm=128), want)
+    (xf, w1, w3, w2, wslot, _), (_, fb2e, ftotal, src), R = _ragged_case(
+        60, 2, 4, 64, 136, bm, torch.bfloat16, cuda, seed=12)
+    fwant = fused_moe(xf, w1, w3, w2, src, wslot, ftotal, fb2e)
+    autotune.record("fused_moe", (R, 136, 64, 4, bm), torch.bfloat16, {"tm": 128})
+    assert torch.equal(fused_moe(xf, w1, w3, w2, src, wslot, ftotal, fb2e), fwant)
+    a, b, sb2e, stotal, old = _wgrad_case(5, 4, 3, 64, 256, 64, seed=13, device=cuda)
+    a, b, old = a.bfloat16(), b.bfloat16(), old.bfloat16()
+    swant = segment_outer(a, b, sb2e, stotal, 64, old.clone(), accumulate=True)
+    autotune.record("segment_outer", (a.shape[0], 64, 256, 3, 64), torch.bfloat16,
+                    {"tm": 128})
+    assert torch.equal(segment_outer(a, b, sb2e, stotal, 64, old.clone(), accumulate=True),
+                       swant)
+    torch.cuda.synchronize()
