@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   -- nvcc builds every kernel of the port from
               src/repro_torch/kernels/csrc (sm_90a), one nvcc per source,
               all started together; ptxas's registers and spills of the
-              Hopper (TMA + wgmma) kernels are printed, and a spill fails.
+              Hopper (TMA + wgmma) kernels are printed, and a spill, or
+              ptxas serializing a Hopper kernel's wgmma, fails.
 3. kernels -- each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (serving: the grouped kernels;
               training: dispatch, ragged matmul at its three layouts and
@@ -292,6 +293,10 @@ def device_phase() -> str:
 HOPPER_KERNELS = ("ragged_wgmma", "grouped_wgmma", "flash_wgmma_kernel",
                   "weight_grad_wgmma")
 NO_SPILLS = "0 bytes spill stores, 0 bytes spill loads"
+# ptxas's note that it serialized a kernel's wgmma instructions (C7515,
+# C7520: e.g. a wgmma on a data-dependent path), which runs them at ~40% of
+# the tensor rate and is an `info` line, not a warning
+SERIALIZED = "wgmma.mma_async instructions are serialized"
 
 
 def ptxas_report(log: str) -> list:
@@ -317,8 +322,10 @@ def build_phase() -> None:
         print(f"built {name} in {info['seconds']:.1f} s"
               + (" (cached)" if info["cached"] else ""), flush=True)
         for ln in info["log"].splitlines():
-            if "warning" in ln.lower():
+            if "warning" in ln.lower() or SERIALIZED in ln:
                 print(f"  {ln.strip()}", flush=True)
+            if SERIALIZED in ln and any(k in ln for k in HOPPER_KERNELS):
+                raise SystemExit(f"ptxas serialized a Hopper kernel's wgmma: {ln.strip()}")
         for fn, regs, spill in ptxas_report(info["log"]):
             hopper = next((k for k in HOPPER_KERNELS if k in fn), None)
             if hopper:

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
 // (ragged_wgmma.cuh's mainloop under bf16 ragged_matmul, ragged_swiglu and
 // fused_moe, grouped_mlp.cu's bf16 grouped_matmul, flash_attention.cu's and
-// weight_grad.cu's bf16 kernels).
+// weight_grad.cu's bf16 kernels; the last also stores its output tiles by
+// TMA).
 //
 // Host: tensor maps (TMA descriptors) encoded per call, since the pointers
 // change from call to call, through cuTensorMapEncodeTiled fetched with
@@ -10,8 +11,10 @@
 // CUtensorMap` parameters.
 //
 // Device: mbarrier init / arrive / arrive-expect-tx / parity wait; TMA tile
-// loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an mbarrier;
-// gathered 16-byte cp.async copies that arrive on an mbarrier; the
+// loads (cp.async.bulk.tensor, 2-D and 3-D) completing on an mbarrier; TMA
+// tile stores (3-D) completing in bulk groups, with the groups' commit and
+// waits; a named barrier over some of a block's warps; gathered 16-byte
+// cp.async copies that arrive on an mbarrier; the
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile; wgmma fence,
 // commit and wait; the m64nNk16 bf16 -> fp32 products (A from shared memory,
 // K-major or M-major, or from registers; B from shared memory, K-major or
@@ -160,6 +163,42 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// TMA tile store from shared memory (one box, in the map's swizzle) to the
+// map's coordinates; elements past the tensor's edge are not written.  The
+// store joins this thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed bulk groups are still
+// reading their shared-memory sources (which may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's committed bulk groups are unfinished
+// (their writes to global memory done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32, of the block
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- device: gathered rows (cp.async; TMA cannot gather) --------------------
 
 // 16 bytes from global `src` to shared `dst`, or 16 zero bytes when `bytes`
@@ -182,7 +221,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // order shared-memory writes of the generic proxy (cp.async, st.shared)
-// before the async proxy's reads of them (wgmma)
+// before the async proxy's reads of them (wgmma, TMA stores)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -20,26 +20,54 @@
 // products are 2 x 4736 x 4096 x 14336 = 0.56 TFLOP (0.56 ms at 989
 // TFLOP/s); the output is 0.94 GB of bf16, written once (0.33 ms at 3.35
 // TB/s with the operands) or read and written when adding (0.61 ms).  So the
-// operations and the output's bytes weigh about the same.
+// operations and the output's bytes weigh about the same, and the kernel
+// is only near its bound when the output's traffic runs under the products.
+// Stored straight from the registers (4-byte pairs in the accumulator's
+// layout, the tensor cores waiting), the output went out at 1.28 TB/s
+// (scripts/chip_wgrad_probe.py; PERF.md).
 //
 // Which dtype runs which kernel:
 //   bf16: TMA + mbarrier ring + wgmma (weight_grad_wgmma), the structure of
 //     ragged_wgmma.cuh: a persistent grid walks TM x 256 output tiles of one
 //     expert's (K, N) gradient, expert by expert, and a tile's reduction
-//     runs over that expert's live rows, found by scanning b2e.  One
-//     producer warpgroup keeps a 4-stage ring of 64-row stages in flight:
-//     A boxes (rows x 64 columns of a) and B boxes (rows x 64 columns of
-//     b), both M- / N-major in shared memory, so wgmma reads A with the
+//     runs over that expert's live rows, found by scanning b2e (once per
+//     expert a block meets).  Thread 0 of the producer warpgroup keeps a
+//     ring of 64-row stages in flight (3 at TM = 128, as many as fit beside
+//     the 64 KB staging tile; 4 at TM = 64; six 32-row stages ran the
+//     products at 517 TFLOP/s where three 64-row ones ran them at 805): A
+//     boxes (rows x 64 columns of a) and B boxes (rows x 64 columns of b),
+//     both M- / N-major in shared memory, so wgmma reads A with the
 //     transpose bit as ragged_wgmma.cuh reads N-major B.  A stage is filled
 //     from G-row groups, G = gcd(bm, 64), each group a TMA load of one row
-//     block's rows, so a stage never holds another expert's rows; the last
-//     stage of an expert holds fewer rows and the consumers issue only the
-//     k16 steps that hold rows (a half-filled k16 step, bm = 8, is padded
-//     with a load past the tensor's last row, which TMA fills with zeros).
+//     block's rows, so a stage never holds another expert's rows; when bm
+//     < 64 the last stage of an expert may hold fewer groups, and its other
+//     slots are loaded from past the tensor's last row, which TMA fills
+//     with zeros.  So the consumers issue every k16 step of every stage: a
+//     wgmma on a data-dependent path makes ptxas serialize all of them
+//     (its note C7520), which runs them at ~40% of the tensor rate.
 //     Two consumer warpgroups each hold 64 rows x 256 columns of fp32 sums
-//     (TM = 128) or share 64 rows, 128 columns each (TM = 64, for K <= 64);
-//     the epilogue loads a row's old values first, then stores, from the
-//     registers.
+//     (TM = 128) or share 64 rows, 128 columns each (TM = 64, for K <= 64).
+//     The epilogue runs beside the next tile's products: each consumer
+//     writes its bf16 tile into a staging tile of its own in shared memory
+//     (64 x 64 boxes in the output map's 128-byte swizzle, so a warp's
+//     writes fall in 32 banks), fences it for the async proxy, and marks it
+//     staged; thread 32 of the producer warpgroup stores it by TMA (3-D
+//     (N, K, E) map: the edges at K and N, and the expert's last row, clip
+//     in hardware) and goes on while the store runs.  The consumers start
+//     the next tile's products at once; they wait only if, at their next
+//     epilogue, the store has not yet read the staging tile.  When adding,
+//     the storer TMA-loads a tile's old values into the staging tile as
+//     soon as the last store has read it, so the load lands under the
+//     tile's products, and the epilogue adds in place with the rounding
+//     points above.  (A TMA reduce-add into the output rounds as those
+//     points do, but the L2's adds ran at ~2.2 TB/s of old and new values
+//     where the loads and stores ran at ~3.5: slower wherever bytes bound
+//     the call.)  One staging tile per consumer, not two, and no ping-pong
+//     of consumers across tiles: TM x 256 sums fill the consumers'
+//     registers, and the ring needs the rest of the shared memory.  ptxas:
+//     168 registers (the launch bound; setmaxnreg moves the producer to 56,
+//     the consumers to 224), no spills, no serialized wgmma, in all four
+//     instantiations.
 //   fp32: a plain FMA tile loop (weight_grad_f32), one block of 128 threads
 //     per 64 x 64 output tile of one expert, 32 rows of a and b staged in
 //     shared memory at a time with ragged_tile.cuh's loader.
@@ -51,16 +79,18 @@
 
 namespace {
 
-// ---- bf16: TMA ring + wgmma -------------------------------------------------
+// ---- bf16: TMA ring + wgmma, TMA-stored epilogue -----------------------------
 
 namespace wg {
 
-using rw::BK;
 using rw::CONSUMERS;
-using rw::STAGES;
 using rw::THREADS;
 constexpr int BN = 256;
-constexpr int BOX = 64 * BK * 2;  // one 64-column box of a 64-row stage
+constexpr int SR = 64;              // rows of a and b in one ring stage
+constexpr int BOX = 64 * SR * 2;    // one 64-column box of a stage
+constexpr int OBOX = 64 * 64 * 2;   // one 64 x 64 box of the output
+constexpr int SMEM_MAX = 232448;    // the shared memory a block may use
+constexpr int BARRIERS = 256;       // room for the mbarriers
 
 template <int TM>
 struct Cfg {
@@ -68,21 +98,31 @@ struct Cfg {
   static constexpr int WN = TM == 128 ? BN : BN / 2;  // columns of one consumer
   static constexpr int A_BYTES = TM / 64 * BOX;
   static constexpr int STAGE = A_BYTES + BN / 64 * BOX;
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static constexpr int HALF = 64 * WN * 2;      // one consumer's staging tile, WN / 64 boxes
+  static constexpr int OUT = CONSUMERS * HALF;  // the staging tile: TM x BN
+  static constexpr int FIT = (SMEM_MAX - 1024 - BARRIERS - OUT) / STAGE;
+  static constexpr int STAGES = FIT < rw::STAGES ? FIT : rw::STAGES;  // 3 at TM 128, 4 at 64
+  static constexpr int SMEM = STAGES * STAGE + OUT + BARRIERS + 1024;
+  static_assert(STAGES >= 3 && SMEM <= SMEM_MAX, "the ring and the staging tile must fit");
 };
 
 struct Args {
-  __nv_bfloat16* out;
   const int* b2e;
   const int* total_rows;
-  int R, K, N, E, bm, g;  // g: the rows of one TMA group, gcd(bm, 64)
+  int R, K, N, E, bm, g;  // g: the rows of one TMA group, gcd(bm, SR)
 };
 
-// The live G-row groups of expert e, in the order a tile reduces them.
-__device__ __forceinline__ int expert_groups(const Args& p, int total, int e) {
+// The live G-row groups of expert e, which a tile reduces in block order;
+// its live blocks lie in [lo, hi) (lo = hi = 0 when it has none).
+__device__ __forceinline__ int expert_span(const Args& p, int total, int e, int& lo, int& hi) {
   const int nb = p.R / p.bm;
   int n = 0;
-  for (int i = 0; i < nb && i * p.bm < total; ++i) n += p.b2e[i] == e;
+  lo = hi = 0;
+  for (int i = 0; i < nb && i * p.bm < total; ++i) {
+    if (p.b2e[i] != e) continue;
+    if (n++ == 0) lo = i;
+    hi = i + 1;
+  }
   return n * (p.bm / p.g);
 }
 
@@ -96,66 +136,89 @@ __device__ __forceinline__ void tile_coords(int t, int num_m, int num_n, int& e,
   nt = rest / num_m;
 }
 
+// consumer w's first row of K and first column within the tile
+template <int TM>
+__device__ __forceinline__ int row0_of(int w) {
+  return TM == 128 ? 64 * w : 0;
+}
+template <int TM>
+__device__ __forceinline__ int col0_of(int w) {
+  return TM == 128 ? 0 : Cfg<TM>::WN * w;
+}
+
 template <int TM, bool ADD>
 __global__ void __launch_bounds__(THREADS, 1)
 weight_grad_wgmma(const __grid_constant__ CUtensorMap a_map,
-                  const __grid_constant__ CUtensorMap b_map, const Args p) {
+                  const __grid_constant__ CUtensorMap b_map,
+                  const __grid_constant__ CUtensorMap out_map, const Args p) {
   using namespace hopper;
   using C = Cfg<TM>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
-  uint64_t* empty = full + STAGES;
+  uint8_t* staging = smem + C::STAGES * C::STAGE;  // consumer w's tile at w * HALF
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + C::OUT);
+  uint64_t* empty = full + C::STAGES;
+  // per consumer: its staging tile may be written (write) or holds the
+  // tile's old values (add); its staging tile holds the tile's output
+  uint64_t* ready = empty + C::STAGES;
+  uint64_t* staged = ready + CONSUMERS;
 
   const int num_m = (p.K + TM - 1) / TM, num_n = (p.N + BN - 1) / BN;
   const int tiles = p.E * num_m * num_n;
   const int total = *p.total_rows;
-  const int per_stage = BK / p.g;  // groups of a full stage
+  const int per_stage = SR / p.g;  // groups of a full stage
   const int wgi = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) {
+      mbar_init(&ready[w], 1);
+      mbar_init(&staged[w], 1);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wgi == CONSUMERS) {
-    // producer: one thread issues every TMA load
-    setmaxnreg_dec<40>();
-    if (threadIdx.x % 128 == 0) {
-      const int nb = p.R / p.bm, row_bytes = (TM + BN) * 2;
-      int it = 0;
+    // producer: thread 0 issues every TMA load of a and b, thread 32 every
+    // TMA transfer of the output (at 40 registers a thread, the TM = 64
+    // instantiation spilled)
+    setmaxnreg_dec<56>();
+    const int q = threadIdx.x % 128;
+    if (q == 0) {
+      const int row_bytes = (TM + BN) * 2;
+      int it = 0, cached_e = -1, groups = 0, lo = 0, hi = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         int e, mt, nt;
         tile_coords(t, num_m, num_n, e, mt, nt);
         const int m0 = mt * TM, n0 = nt * BN;
-        const int groups = expert_groups(p, total, e);
+        if (e != cached_e) {  // a block's tiles run expert by expert
+          groups = expert_span(p, total, e, lo, hi);
+          cached_e = e;
+        }
         int gi = 0;
         uint8_t* sa = smem;
-        for (int i = 0; i < nb && i * p.bm < total; ++i) {
+        for (int i = lo; i < hi; ++i) {
           if (p.b2e[i] != e) continue;
           for (int r0 = i * p.bm; r0 < (i + 1) * p.bm; r0 += p.g, ++gi) {
-            const int slot = gi % per_stage, s = it % STAGES;
+            const int slot = gi % per_stage, s = it % C::STAGES;
             if (slot == 0) {
-              mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+              mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
               sa = smem + s * C::STAGE;
-              const int in_stage = min(per_stage, groups - gi);
-              // a stage's rows end on a whole k16 step: an 8-row tail gets
-              // one more group, loaded from past the last row (zeros)
-              const int pad = (in_stage * p.g) % 16 ? 1 : 0;
-              mbar_expect_tx(&full[s], (in_stage + pad) * p.g * row_bytes);
-              if (pad) {
-                const int off = in_stage * p.g * 128;
+              // every stage is whole: the group slots past an expert's
+              // last row are loaded from past the tensor's last row (zeros)
+              mbar_expect_tx(&full[s], SR * row_bytes);
+              for (int z = min(per_stage, groups - gi); z < per_stage; ++z) {
 #pragma unroll
                 for (int j = 0; j < TM / 64; ++j)
-                  tma_load_2d(sa + j * BOX + off, &a_map, &full[s], m0 + 64 * j, p.R);
+                  tma_load_2d(sa + j * BOX + z * p.g * 128, &a_map, &full[s], m0 + 64 * j, p.R);
 #pragma unroll
                 for (int j = 0; j < BN / 64; ++j)
-                  tma_load_2d(sa + C::A_BYTES + j * BOX + off, &b_map, &full[s], n0 + 64 * j,
-                              p.R);
+                  tma_load_2d(sa + C::A_BYTES + j * BOX + z * p.g * 128, &b_map, &full[s],
+                              n0 + 64 * j, p.R);
               }
             }
             const int off = slot * p.g * 128;
@@ -169,38 +232,78 @@ weight_grad_wgmma(const __grid_constant__ CUtensorMap a_map,
           }
         }
       }
+    } else if (q == 32) {
+      // the output: per tile and consumer, make the staging tile ready (add:
+      // load the old values into it), then store it once the consumer has
+      // written it.  Boxes wholly past K or N are neither loaded nor stored;
+      // TMA clips the others at the tensor's edges.
+      int n = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++n) {
+        int e, mt, nt;
+        tile_coords(t, num_m, num_n, e, mt, nt);
+        bulk_wait_read<0>();  // the last tile's stores have read the staging tile
+#pragma unroll
+        for (int w = 0; w < CONSUMERS; ++w) {
+          const int r0 = mt * TM + row0_of<TM>(w), c0 = nt * BN + col0_of<TM>(w);
+          if constexpr (ADD) {
+            int boxes = 0;
+#pragma unroll
+            for (int j = 0; j < C::WN / 64; ++j) boxes += r0 < p.K && c0 + 64 * j < p.N;
+            mbar_expect_tx(&ready[w], boxes * OBOX);
+#pragma unroll
+            for (int j = 0; j < C::WN / 64; ++j)
+              if (r0 < p.K && c0 + 64 * j < p.N)
+                tma_load_3d(staging + w * C::HALF + j * OBOX, &out_map, &ready[w], c0 + 64 * j,
+                            r0, e);
+          } else {
+            mbar_arrive(&ready[w]);
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < CONSUMERS; ++w) {
+          const int r0 = mt * TM + row0_of<TM>(w), c0 = nt * BN + col0_of<TM>(w);
+          mbar_wait(&staged[w], n & 1);
+#pragma unroll
+          for (int j = 0; j < C::WN / 64; ++j)
+            if (r0 < p.K && c0 + 64 * j < p.N)
+              tma_store_3d(&out_map, staging + w * C::HALF + j * OBOX, c0 + 64 * j, r0, e);
+          bulk_commit();
+        }
+      }
+      bulk_wait<0>();  // every store has reached global memory
     }
   } else {
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<224>();  // 128 x 56 + 256 x 224 registers fit in the SM's 65536
     const int t128 = threadIdx.x % 128, warp = t128 / 32, lane = t128 % 32;
     // this consumer's A box (its 64 rows of K) and first column in the tile
-    const int abox = TM == 128 ? wgi : 0, col0 = TM == 128 ? 0 : C::WN * wgi;
-    const int row0 = 64 * abox;
+    const int abox = TM == 128 ? wgi : 0, col0 = col0_of<TM>(wgi);
+    uint8_t* mine = staging + wgi * C::HALF;
     float acc[C::WN / 2];
-    int it = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int it = 0, n = 0, cached_e = -1, groups = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++n) {
       int e, mt, nt;
       tile_coords(t, num_m, num_n, e, mt, nt);
-      const int m0 = mt * TM, n0 = nt * BN;
-      const int groups = expert_groups(p, total, e);
+      if (e != cached_e) {
+        int lo, hi;
+        groups = expert_span(p, total, e, lo, hi);
+        cached_e = e;
+      }
 #pragma unroll
       for (int i = 0; i < C::WN / 2; ++i) acc[i] = 0.0f;
       int prev = -1;
       for (int g0 = 0; g0 < groups; g0 += per_stage, ++it) {
-        const int s = it % STAGES;
-        const int rows = min(per_stage, groups - g0) * p.g;
-        const int steps = (rows + 15) / 16;
-        mbar_wait(&full[s], (it / STAGES) & 1);
+        const int s = it % C::STAGES;
+        mbar_wait(&full[s], (it / C::STAGES) & 1);
         const uint8_t* sa = smem + s * C::STAGE + abox * BOX;
         const uint8_t* sb = smem + s * C::STAGE + C::A_BYTES + (col0 / 64) * BOX;
         fence_regs(acc);
         wgmma_fence();
+        // every k16 step, unconditionally: a wgmma on a data-dependent path
+        // makes ptxas serialize them all (C7520)
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          if (kk < steps)
-            wgmma_ss<1, 1>(acc, desc_sw128(sa + kk * 16 * 128, BOX, 1024),
-                           desc_sw128(sb + kk * 16 * 128, BOX, 1024));
-        }
+        for (int kk = 0; kk < SR / 16; ++kk)
+          wgmma_ss<1, 1>(acc, desc_sw128(sa + kk * 16 * 128, BOX, 1024),
+                         desc_sw128(sb + kk * 16 * 128, BOX, 1024));
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done
         fence_regs(acc);
@@ -211,32 +314,31 @@ weight_grad_wgmma(const __grid_constant__ CUtensorMap a_map,
       fence_regs(acc);
       if (prev >= 0 && t128 == 0) mbar_arrive(&empty[prev]);
 
-      // epilogue, from the accumulator layout: row 16 warp + lane / 4 + 8 h,
-      // columns 8 j + 2 (lane % 4) + {0, 1}; a row's old values are all
-      // loaded before any is stored
+      // epilogue, from the accumulator layout (row 16 warp + lane / 4 + 8 h,
+      // columns 8 j + 2 (lane % 4) + {0, 1}) into the staging tile, in the
+      // output map's 64 x 64 boxes with their 128-byte swizzle (the 16-byte
+      // chunk c of row r at r * 128 + (c ^ r % 8) * 16; r % 8 = lane / 4, so
+      // a warp's 32 words fall in 32 banks).  Adding reads each old value
+      // from the same word it writes.
+      mbar_wait(&ready[wgi], n & 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + row0 + 16 * warp + lane / 4 + 8 * h;
-        if (row >= p.K) continue;
-        __nv_bfloat16* orow = p.out + ((size_t)e * p.K + row) * p.N + n0 + col0 + 2 * (lane % 4);
-        const int cols = p.N - (n0 + col0 + 2 * (lane % 4));
-        [[maybe_unused]] __nv_bfloat162 old[C::WN / 8];
-        if constexpr (ADD) {
-#pragma unroll
-          for (int j = 0; j < C::WN / 8; ++j)
-            if (8 * j < cols) old[j] = *reinterpret_cast<const __nv_bfloat162*>(orow + 8 * j);
-        }
+        const int r = 16 * warp + lane / 4 + 8 * h;
 #pragma unroll
         for (int j = 0; j < C::WN / 8; ++j) {
-          if (8 * j >= cols) continue;
+          __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+              mine + (j / 8) * OBOX + r * 128 + ((j % 8) ^ (lane / 4)) * 16 + (lane % 4) * 4);
           __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
           if constexpr (ADD) {
-            const float2 o = __bfloat1622float2(old[j]), s2 = __bfloat1622float2(v);
+            const float2 o = __bfloat1622float2(*dst), s2 = __bfloat1622float2(v);
             v = __floats2bfloat162_rn(o.x + s2.x, o.y + s2.y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = v;
+          *dst = v;
         }
       }
+      fence_proxy_async();            // the writes, before the TMA store reads them
+      named_bar_sync(1 + wgi, 128);   // this consumer's 128 threads
+      if (t128 == 0) mbar_arrive(&staged[wgi]);
     }
   }
 }
@@ -250,12 +352,15 @@ inline int map_cols(CUtensorMap* map, const void* x, int R, int C, int rows) {
 }
 
 template <int TM, bool ADD>
-int launch(const void* a, const void* b, const Args& p, cudaStream_t stream) {
+int launch(const void* a, const void* b, void* out, const Args& p, cudaStream_t stream) {
   using C = Cfg<TM>;
-  CUtensorMap a_map, b_map;
+  CUtensorMap a_map, b_map, out_map;
   int err = map_cols(&a_map, a, p.R, p.K, p.g);
   if (err) return err;
   if ((err = map_cols(&b_map, b, p.R, p.N, p.g))) return err;
+  // out (E, K, N) has a weight's layout: 64-column x 64-row boxes, and the
+  // third dimension keeps a box from crossing into the next expert's rows
+  if ((err = rw::map_weights(&out_map, out, p.E, p.K, p.N, false, 0))) return err;
   auto kernel = weight_grad_wgmma<TM, ADD>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -263,25 +368,26 @@ int launch(const void* a, const void* b, const Args& p, cudaStream_t stream) {
   const int tiles = p.E * ((p.K + TM - 1) / TM) * ((p.N + BN - 1) / BN);
   if (tiles == 0) return 0;
   const int sms = hopper::sm_count(), grid = tiles < sms ? tiles : sms;
-  kernel<<<grid, THREADS, C::SMEM, stream>>>(a_map, b_map, p);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(a_map, b_map, out_map, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-int gcd64(int bm) {
-  int g = 64;
+// the rows of one TMA group: the largest power of two up to a stage's rows
+// that divides bm, so a group never holds two row blocks
+int group_rows(int bm) {
+  int g = wg::SR;
   while (bm % g) g /= 2;
   return g;
 }
 
 int launch_bf16(const void* a, const void* b, void* out, const void* b2e, const void* total_rows,
                 int R, int K, int N, int E, int bm, int tm, int add, cudaStream_t s) {
-  const wg::Args p{(__nv_bfloat16*)out, (const int*)b2e, (const int*)total_rows, R, K, N, E, bm,
-                   gcd64(bm)};
+  const wg::Args p{(const int*)b2e, (const int*)total_rows, R, K, N, E, bm, group_rows(bm)};
   if (tm == 128)
-    return add ? wg::launch<128, true>(a, b, p, s) : wg::launch<128, false>(a, b, p, s);
-  return add ? wg::launch<64, true>(a, b, p, s) : wg::launch<64, false>(a, b, p, s);
+    return add ? wg::launch<128, true>(a, b, out, p, s) : wg::launch<128, false>(a, b, out, p, s);
+  return add ? wg::launch<64, true>(a, b, out, p, s) : wg::launch<64, false>(a, b, out, p, s);
 }
 
 // ---- fp32: an FMA tile loop ---------------------------------------------------

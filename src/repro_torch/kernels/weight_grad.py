@@ -8,9 +8,11 @@ legs' backward; the JAX package computes it with a ``lax.scan``,
 gradient buffer or adds it into what the buffer holds.  The add is how one
 MoE layer keeps one gradient buffer per expert weight across its FCDA
 chunks (``kernels/ops.py``).  On a CUDA tensor it launches its kernel of
-``csrc/weight_grad.cu``, picked by dtype: bf16 a TMA + ``wgmma`` kernel,
-fp32 a plain FMA tile loop.  On a CPU tensor it computes the plain version
-of ``kernels/ref.py``.  It counts its kernel launches in ``.launches``.  The
+``csrc/weight_grad.cu``, picked by dtype: bf16 a TMA + ``wgmma`` kernel
+whose epilogue stages each output tile in shared memory and stores it by
+TMA while the next tile's products run (adding, the old values are
+TMA-loaded under the products too), fp32 a plain FMA tile loop.  On a CPU
+tensor it computes the plain version of ``kernels/ref.py``.  It counts its kernel launches in ``.launches``.  The
 bf16 kernel takes its output tile's rows of K at run time: the autotuner's
 cached winner for (R, K, N, E, bm) where the kernel takes it (128 only when
 K > 64), else 128, or 64 when K <= 64 (``kernels/tiling.py``).

@@ -539,12 +539,16 @@ def _wgrad_case(nb, live, E, K, N, bm, seed, exact=False, empty=(), device="cpu"
 # (row blocks, live blocks, E, K, N, bm, experts with no rows): first one
 # output tile of one expert (the M-major A operand alone; K 64 takes 64-row
 # output tiles, K > 64 128-row ones), then K and N off their tiles, dead
-# blocks, 8- and 16-row blocks (8-row groups, a half k16 step padded), and
-# experts with no rows
+# blocks, 8- and 16-row blocks (8-row groups, a short stage filled with
+# zeros), and experts with no rows; last, more output tiles than an H100
+# has SMs, so each persistent block walks several and writes its staging
+# tile again while its last TMA store may be in flight: 8 x 8 x 8 = 512
+# tiles, then 48 x 2 x 2 = 192 with K and N off the 64 x 64 store box
 WGRAD_CASES = [(1, 1, 1, 64, 256, 64, ()), (1, 1, 1, 128, 256, 64, ()),
                (6, 4, 4, 136, 600, 128, ()), (7, 5, 4, 72, 200, 64, ()),
                (13, 9, 4, 64, 136, 8, ()), (10, 8, 4, 200, 264, 16, (2,)),
-               (5, 5, 3, 256, 512, 128, (1,)), (9, 7, 4, 64, 264, 64, (0, 3))]
+               (5, 5, 3, 256, 512, 128, (1,)), (9, 7, 4, 64, 264, 64, (0, 3)),
+               (40, 36, 8, 1024, 2048, 128, ()), (120, 110, 48, 200, 264, 16, (5, 47))]
 
 
 @pytest.mark.cuda
@@ -553,8 +557,9 @@ WGRAD_CASES = [(1, 1, 1, 64, 256, 64, ()), (1, 1, 1, 128, 256, 64, ()),
 def test_segment_outer_bf16_is_exact_under_exact_arithmetic(cuda, nb, live, E, K, N, bm,
                                                             empty, accumulate):
     """Integer rows: every fp32 sum is exact, so the kernel's write and add
-    equal the plain version bit for bit, and an expert with no rows gets 0
-    (write) or keeps its old values (add)."""
+    equal the plain version bit for bit, an expert with no rows gets 0
+    (write) or keeps its old values (add), and 8 relaunches equal the
+    first."""
     a, b, b2e, total, old = _wgrad_case(nb, live, E, K, N, bm, seed=nb * K + N, exact=True,
                                         empty=empty, device=cuda)
     a, b, old = a.bfloat16(), b.bfloat16(), old.bfloat16()
@@ -566,6 +571,9 @@ def test_segment_outer_bf16_is_exact_under_exact_arithmetic(cuda, nb, live, E, K
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     for e in empty:
         assert torch.equal(got[e], old[e] if accumulate else torch.zeros_like(old[e]))
+    for _ in range(8):
+        assert torch.equal(segment_outer(a, b, b2e, total, bm, old.clone(),
+                                         accumulate=accumulate), got)
 
 
 def _assert_wgrad_close(got, want, a, b, b2e, total, accumulate):
