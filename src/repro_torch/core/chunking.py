@@ -22,6 +22,8 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime import spans
+
 
 class ScheduleSpec(NamedTuple):
     """One MoE layer's FCDA schedule: ``chunks`` is the MACT-snapped chunk
@@ -65,12 +67,23 @@ def _sum_stats(stats: list) -> dict:
     return out
 
 
+def _counted(fn: Callable) -> Callable:
+    """``fn`` counting its runs as ``fcda.chunk_runs`` (``runtime/spans.py``):
+    in the forward and in every recompute."""
+    def run(*a):
+        spans.count("fcda.chunk_runs")
+        return fn(*a)
+    return run
+
+
 def _body(fn: Callable, remat: bool) -> Callable:
     """``fn`` under a non-reentrant checkpoint (Eq. 7) when ``remat`` and
-    autograd is recording; as is otherwise."""
+    autograd is recording, its recompute under the span ``remat.chunk``;
+    as is otherwise."""
     if not remat:
         return fn
-    return lambda *a: (checkpoint(fn, *a, use_reentrant=False)
+    return lambda *a: (checkpoint(fn, *a, use_reentrant=False,
+                                  context_fn=spans.recompute_context("remat.chunk"))
                        if torch.is_grad_enabled() else fn(*a))
 
 
@@ -84,7 +97,7 @@ def chunked_map(fn: Callable, x: torch.Tensor, num_chunks: int, dim: int = 0, *,
     T = x.shape[dim]
     if T % num_chunks:
         raise ValueError(f"token count {T} not divisible by c={num_chunks}")
-    body = _body(fn, remat)
+    body = _body(_counted(fn), remat)
     if num_chunks == 1:
         return body(x)
     ys, stats = [], []
@@ -115,9 +128,10 @@ def chunked_pipeline(stages: ChunkStages, x: torch.Tensor, num_chunks: int, *,
     fn = compose(stages)
     if num_chunks < 2 or depth == 1 or num_chunks % depth:
         return chunked_map(fn, x, num_chunks, remat=remat)
+    chunk_fn = _counted(fn)
 
     def wave_fn(xw):
-        outs = [fn(xc) for xc in xw.chunk(depth)]
+        outs = [chunk_fn(xc) for xc in xw.chunk(depth)]
         return (torch.cat([o[0] for o in outs]), _sum_stats([o[1] for o in outs]))
 
     body = _body(wave_fn, remat)

@@ -40,6 +40,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           extend_attention)
 from repro_torch.models.layers import apply_mlp, apply_norm, apply_rope
+from repro_torch.runtime import spans
 
 
 def zero_stats(cfg: ModelConfig, device) -> dict:
@@ -139,9 +140,13 @@ def attn_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                positions: torch.Tensor, ctx: DistContext, causal: bool = True,
                return_kv: bool = False):
     """Prefill attention.  ``return_kv`` also returns the pre-repeat
-    (B, S, KH, hd) K/V that the single-pass prefill writes into the cache."""
-    q, k, v = _qkv_base(p, x, cfg, spec, positions)
-    y = _out_proj(p, attention(q, k, v, spec.attn, causal=causal), x)
+    (B, S, KH, hd) K/V that the single-pass prefill writes into the cache.
+    While the recorder records (``runtime/spans.py``), the mixer runs
+    under the span ``attn`` and its backward under ``attn.bwd``."""
+    with spans.span("attn", device=True):
+        marks = spans.backward_span("attn.bwd", device=True)
+        q, k, v = _qkv_base(p, marks.inputs(x), cfg, spec, positions)
+        y = marks.output(_out_proj(p, attention(q, k, v, spec.attn, causal=causal), x))
     return (y, (k, v)) if return_kv else y
 
 
@@ -463,8 +468,10 @@ def apply_layer(params: dict, x: torch.Tensor, spec: LayerSpec,
     if cfg.remat_policy == "none" or not torch.is_grad_enabled():
         return layer_fn(x)
     if cfg.remat_policy == "selective":
-        return checkpoint(layer_fn, x, use_reentrant=False, context_fn=_SAVE_QKV)
-    return checkpoint(layer_fn, x, use_reentrant=False)
+        return checkpoint(layer_fn, x, use_reentrant=False,
+                          context_fn=spans.recompute_context("remat.layer", _SAVE_QKV))
+    return checkpoint(layer_fn, x, use_reentrant=False,
+                      context_fn=spans.recompute_context("remat.layer"))
 
 
 

@@ -36,6 +36,7 @@ from repro_torch.core.router import bias_step
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      named_params, param_list)
+from repro_torch.runtime import spans
 
 
 class TrainState(NamedTuple):
@@ -126,22 +127,25 @@ def make_train_step(cfg: ModelConfig, ctx: DistContext, *, lr=3e-4):
 
     def train_step(state: TrainState, batch: dict):
         leaves = param_list(state.params)
-        loss, m = loss_fn(state.params, cfg, ctx, batch)
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-        lr_val = lr(state.step) if callable(lr) else lr
-        norm = {}
-        if mesh is not None:
-            flags = expert_flags(state.params, cfg)
-            _reduce_grads(grads, flags, mesh)
-            norm = {"sharded": flags,
-                    "reduce": lambda t: mesh.all_reduce_(t, "ep")}
-        # DeepSeek-style loss-free bias balancing runs outside the gradient;
-        # its steps are made here, before AdamW's first write
-        bias_steps = (_router_bias_steps(state.params, m["load"], cfg)
-                      if cfg.moe is not None and cfg.moe.loss_free_bias else [])
-        opt, om = adamw_update(grads, state.opt, leaves, lr=lr_val, **norm)
-        del grads
-        _apply_bias_steps(bias_steps)
+        with spans.span("train.forward"):
+            loss, m = loss_fn(state.params, cfg, ctx, batch)
+        with spans.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        with spans.span("train.optimizer", device=True):
+            lr_val = lr(state.step) if callable(lr) else lr
+            norm = {}
+            if mesh is not None:
+                flags = expert_flags(state.params, cfg)
+                _reduce_grads(grads, flags, mesh)
+                norm = {"sharded": flags,
+                        "reduce": lambda t: mesh.all_reduce_(t, "ep")}
+            # DeepSeek-style loss-free bias balancing runs outside the
+            # gradient; its steps are made here, before AdamW's first write
+            bias_steps = (_router_bias_steps(state.params, m["load"], cfg)
+                          if cfg.moe is not None and cfg.moe.loss_free_bias else [])
+            opt, om = adamw_update(grads, state.opt, leaves, lr=lr_val, **norm)
+            del grads
+            _apply_bias_steps(bias_steps)
         metrics = {**{k: v.detach() for k, v in m.items()},
                    **om, "lr": float(lr_val)}
         return TrainState(state.params, opt, state.step + 1), metrics

@@ -80,6 +80,7 @@ from repro_torch.core.placement import PlacementSpec
 from repro_torch.core.telemetry import LoadTelemetry
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.models.transformer import num_moe_layers
+from repro_torch.runtime import spans
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.guard import FULL_REMAT, DegradationLadder, OOMGuard
 from repro_torch.training.step import (TrainState, init_train_state,
@@ -467,58 +468,62 @@ class Trainer:
             self._fold_peak(torch.cuda.memory_allocated(dev))
         n = steps - state.step if self.resume else steps
         for _ in range(max(n, 0)):
-            step_idx = state.step
-            key = self._next_schedule_key()
-            batch = {k: torch.as_tensor(v[self._rows], device=dev)
-                     for k, v in self.data.batch_at(step_idx).items()}
+            with spans.span("train.step"):
+                step_idx = state.step
+                with spans.span("train.plan"):
+                    key = self._next_schedule_key()
+                with spans.span("train.batch"):
+                    batch = {k: torch.as_tensor(v[self._rows], device=dev)
+                             for k, v in self.data.batch_at(step_idx).items()}
 
-            def attempt(k, _state=state, _batch=batch, _step=step_idx):
-                if self.injector is not None:
-                    self.injector.maybe_fail_step(_step)   # oom/crash hooks
-                    self.injector.maybe_stall(_step)
-                if dev.type == "cuda":               # this attempt's own peak
-                    torch.cuda.reset_peak_memory_stats(dev)
-                try:
-                    new_state, metrics = self._step_for(
-                        self._with_placements(k))(_state, _batch)
-                    # the step's one sync point: a real OOM surfaces by here
-                    loss = float(metrics["loss"])
-                finally:
-                    if dev.type == "cuda":
-                        self._fold_peak(torch.cuda.max_memory_allocated(dev))
-                return new_state, metrics, loss
+                def attempt(k, _state=state, _batch=batch, _step=step_idx):
+                    if self.injector is not None:
+                        self.injector.maybe_fail_step(_step)   # oom/crash hooks
+                        self.injector.maybe_stall(_step)
+                    if dev.type == "cuda":               # this attempt's own peak
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    try:
+                        new_state, metrics = self._step_for(
+                            self._with_placements(k))(_state, _batch)
+                        # the step's one sync point: a real OOM surfaces by here
+                        with spans.span("train.readback"):
+                            loss = float(metrics["loss"])
+                    finally:
+                        if dev.type == "cuda":
+                            self._fold_peak(torch.cuda.max_memory_allocated(dev))
+                    return new_state, metrics, loss
 
-            t0 = time.perf_counter()
-            n_esc = len(self.guard.escalations)
-            (state, metrics, loss), used = self.guard.run(key, attempt, step_idx)
-            dt = time.perf_counter() - t0
-            chunks, pipeline = self._key_summary(used)
-            burst = (self.injector.burst_factor(step_idx)
-                     if self.injector is not None else 1.0)
-            load = metrics["load"].cpu().numpy() * burst
-            self._last_load = load
-            per_layer = (metrics["load_per_layer"].cpu().numpy() * burst
-                         if "load_per_layer" in metrics else None)
-            if self.adaptive_mact and self._n_moe and per_layer is not None:
-                self.telemetry.update(per_layer)
-            tgs = self.global_batch * self.seq_len / max(dt, 1e-9)
-            rec = {"step": state.step, "loss": loss,
-                   "ce": float(metrics["ce"]), "aux": float(metrics["aux"]),
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "chunks": chunks, "pipeline": pipeline, "time_s": dt,
-                   "tgs": tgs, "max_load": float(load.max()),
-                   "drops": float(metrics["drops"]),
-                   "oom_retries": len(self.guard.escalations) - n_esc}
-            if self._peers > 1:
-                rec["recv_by_peer"] = self._recv_by_peer(load, per_layer).tolist()
-            imb = self.telemetry.imbalance()
-            if imb is not None:
-                rec["imbalance"] = float(imb.max())
-            self.log.append(rec)
-            self.chunk_trace.append(chunks)
-            self.pipeline_trace.append(pipeline)
-            if self.adaptive_mact and self._layer_schedules is not None:
-                self.schedule_trace.append(self._layer_schedules)
+                t0 = time.perf_counter()
+                n_esc = len(self.guard.escalations)
+                (state, metrics, loss), used = self.guard.run(key, attempt, step_idx)
+                dt = time.perf_counter() - t0
+                chunks, pipeline = self._key_summary(used)
+                burst = (self.injector.burst_factor(step_idx)
+                         if self.injector is not None else 1.0)
+                load = metrics["load"].cpu().numpy() * burst
+                self._last_load = load
+                per_layer = (metrics["load_per_layer"].cpu().numpy() * burst
+                             if "load_per_layer" in metrics else None)
+                if self.adaptive_mact and self._n_moe and per_layer is not None:
+                    self.telemetry.update(per_layer)
+                tgs = self.global_batch * self.seq_len / max(dt, 1e-9)
+                rec = {"step": state.step, "loss": loss,
+                       "ce": float(metrics["ce"]), "aux": float(metrics["aux"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "chunks": chunks, "pipeline": pipeline, "time_s": dt,
+                       "tgs": tgs, "max_load": float(load.max()),
+                       "drops": float(metrics["drops"]),
+                       "oom_retries": len(self.guard.escalations) - n_esc}
+                if self._peers > 1:
+                    rec["recv_by_peer"] = self._recv_by_peer(load, per_layer).tolist()
+                imb = self.telemetry.imbalance()
+                if imb is not None:
+                    rec["imbalance"] = float(imb.max())
+                self.log.append(rec)
+                self.chunk_trace.append(chunks)
+                self.pipeline_trace.append(pipeline)
+                if self.adaptive_mact and self._layer_schedules is not None:
+                    self.schedule_trace.append(self._layer_schedules)
             if verbose:
                 retries = (f" oom_retries={rec['oom_retries']}"
                            if rec["oom_retries"] else "")
