@@ -19,7 +19,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               4608 rows from 2 source blocks with -1 gaps, 4 local
               experts, and at a placed EP rank's: R 4736, 5 weight slots
               (a replica slot per rank); attention: flash attention at
-              Mixtral-8x7B's heads), in fp32 and bf16, and the grouped
+              Mixtral-8x7B's heads; optimizer: AdamW's clipping norm and
+              update at the 2-layer training run's 25 parameters, the
+              norm within 1e-6 of the plain one and the update bit-equal
+              to the plain sliced loop), in fp32 and bf16, and the grouped
               kernels also at Jamba-1.5-Large's MoE shapes (16 experts,
               d_model 8192, d_ff 24576) in bf16, each timed beside the
               plain version, a one-call PyTorch yardstick where there is
@@ -101,8 +104,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               cut to 2 layers, bf16 weights, fp32 AdamW moments) for 4 steps
               of 2 x 2048 tokens on the EP strategy at one peer with the
               fused expert leg, MACT choosing the schedule; every loss and
-              grad norm must be finite and every kernel of the path must
-              have launched.  Then one more step under torch.profiler, and
+              grad norm must be finite and every kernel of the path (AdamW's
+              two included) must have launched.  Then one more step under torch.profiler, and
               the peak of one forward + backward against MACT's modeled
               activation bytes at MACT's schedule, at (2, 1) and unchunked:
               two sequential chunks must not raise it above one chunk's.
@@ -1321,6 +1324,158 @@ def attention_kernels_phase() -> dict:
         "shapes": shapes}}
 
 
+# AdamW at the training path's parameter list (phase "kernels (optimizer)"):
+# the trainer's hyperparameters but a larger step, so that the update moves
+# every bf16 parameter, at a step past the first (bias corrections below 1)
+ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_STEP = 5
+TOL_NORM = 1e-6     # relative: the kernels' clipping norm against global_norm's
+
+
+def optimizer_kernels_phase() -> dict:
+    """Check and time AdamW's kernels (``sumsq``, the clipping norm, and
+    ``adamw_step``, the update) at the training path's parameter list:
+    full-width Mixtral-8x7B at 2 layers, the matrices bf16 and the norms and
+    router fp32, each tensor's parameter, gradient and moments drawn from a
+    seed of its own.  The norm must agree with ``global_norm`` within
+    TOL_NORM and repeat its bits; the update must equal ``apply_update``
+    (the plain sliced loop) bit for bit given the same scale and bias
+    corrections, tensor by tensor from a fresh draw.  Each is timed beside
+    its plain version, its byte bound and, for the update,
+    ``torch._fused_adamw_`` (a yardstick the port never calls; moments in
+    the parameters' type, since it takes one type per tensor position).
+    Returns {"sumsq": entry, "adamw_step": entry}."""
+    phase("kernels (optimizer)")
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw_cuda
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2)
+    leaves = adamw.param_list(transformer.init_params(cfg, device=dev,
+                                                      dtype=torch.bfloat16))
+    layout = [(tuple(p.shape), p.dtype) for p in leaves]
+    del leaves
+    torch.cuda.empty_cache()
+
+    def draw(i: int) -> tuple:
+        """Tensor i's (parameter, gradient, first moment, second moment)."""
+        shape, dtype = layout[i]
+        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+        return (torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(0.02),
+                torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(1e-3),
+                torch.randn(shape, generator=gen, device=dev).mul_(1e-4),
+                torch.rand(shape, generator=gen, device=dev).mul_(1e-7))
+
+    params, grads, mu, nu = map(list, zip(*(draw(i) for i in range(len(layout)))))
+    n = sum(p.numel() for p in params)
+    norm_bytes = sum(g.numel() * g.element_size() for g in grads)
+    update_bytes = norm_bytes + sum(p.numel() * (2 * p.element_size() + 16) for p in params)
+    label = f"Mixtral-8x7B at 2 layers: {len(params)} tensors, {n} parameters"
+    print(f"{label}; the update moves {update_bytes / n:.2f} B a parameter, the norm "
+          f"{norm_bytes / n:.2f}", flush=True)
+
+    # the norm: against global_norm, and against an fp64 sum for both
+    rep, shd = adamw_cuda.sumsq(grads)
+    again = adamw_cuda.sumsq(grads)
+    if not (torch.equal(rep, again[0]) and torch.equal(shd, again[1])):
+        raise SystemExit("sumsq: a rerun gave other bits")
+    gnorm = torch.sqrt(rep + shd)
+    plain = adamw.global_norm(grads)
+    exact = math.sqrt(sum(g.double().square().sum().item() for g in grads))
+    norm_err = abs(gnorm.item() / plain.item() - 1)
+    print(f"sumsq {label}: norm {gnorm.item():.9g}, global_norm {plain.item():.9g}, "
+          f"fp64 {exact:.9g}; relative to global_norm {norm_err:.3e} (tol {TOL_NORM}), "
+          f"to fp64: kernel {abs(gnorm.item() / exact - 1):.3e}, global_norm "
+          f"{abs(plain.item() / exact - 1):.3e}; a rerun bit for bit", flush=True)
+    if norm_err > TOL_NORM:
+        raise SystemExit(f"sumsq disagrees with global_norm by {norm_err:.3e}")
+
+    # the update: bit for bit against the plain path, tensor by tensor
+    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+    bc1, bc2 = adamw.bias_corrections(ADAMW_HYPER["b1"], ADAMW_HYPER["b2"], ADAMW_STEP)
+    bc1, bc2 = bc1.to(dev), bc2.to(dev)
+    c1, c2 = bc1.item(), bc2.item()
+    before = adamw_cuda.adamw_step.launches
+    adamw_cuda.adamw_step(grads, mu, nu, params, scale, c1, c2, **ADAMW_HYPER)
+    tables = adamw_cuda.adamw_step.launches - before
+    for i in range(len(layout)):
+        p0, g0, m0, v0 = draw(i)
+        adamw.apply_update([g0], [m0], [v0], [p0], scale, bc1, bc2, **ADAMW_HYPER)
+        for what, got, want in (("parameter", params[i], p0), ("first moment", mu[i], m0),
+                                ("second moment", nu[i], v0)):
+            if not torch.equal(got, want):
+                raise SystemExit(f"adamw_step differs from apply_update in tensor {i}'s "
+                                 f"{what} {tuple(got.shape)} {got.dtype}")
+        del p0, g0, m0, v0
+    print(f"adamw_step {label}: every parameter and moment bit-equal to apply_update "
+          f"given scale {scale.item():.6g}, step {ADAMW_STEP}; {tables} launches",
+          flush=True)
+
+    state = adamw.AdamWState(ADAMW_STEP - 1, mu, nu)
+    whole = dict(
+        kernel=device_ms(lambda: adamw.adamw_update(grads, state, params,
+                                                    lr=ADAMW_HYPER["lr"]),
+                         kernel_call=True),
+        sumsq=device_ms(lambda: adamw_cuda.sumsq(grads), kernel_call=True),
+        adamw_step=device_ms(lambda: adamw_cuda.adamw_step(
+            grads, mu, nu, params, scale, c1, c2, **ADAMW_HYPER), kernel_call=True),
+        global_norm=device_ms(lambda: adamw.global_norm(grads)),
+        apply_update=device_ms(lambda: adamw.apply_update(
+            grads, mu, nu, params, scale, bc1, bc2, **ADAMW_HYPER), 3))
+    torch.cuda.empty_cache()
+    groups = {}
+    for p, g in zip(params, grads):
+        groups.setdefault(p.dtype, []).append((p, g, torch.zeros_like(p),
+                                               torch.zeros_like(p),
+                                               torch.ones((), device=dev)))
+
+    def library():
+        for group in groups.values():
+            ps, gs, ms, vs, steps = map(list, zip(*group))
+            torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=ADAMW_HYPER["lr"],
+                                beta1=ADAMW_HYPER["b1"], beta2=ADAMW_HYPER["b2"],
+                                weight_decay=ADAMW_HYPER["weight_decay"],
+                                eps=ADAMW_HYPER["eps"], amsgrad=False, maximize=False)
+
+    whole["library"] = device_ms(library)
+    del groups, params, grads, mu, nu, state
+    torch.cuda.empty_cache()
+
+    entries = {}
+    for name, nbytes, plain_name, lib, err in (
+            ("sumsq", norm_bytes, "global_norm", None, abs(gnorm.item() - plain.item())),
+            ("adamw_step", update_bytes, "apply_update", "library", 0.0)):
+        ms, host_ms, _ = whole[name]
+        plain_ms, _, plain_note = whole[plain_name]
+        lib_ms, _, lib_note = whole[lib] if lib else (None, None, "")
+        bms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{name} {label}: device ms: kernel {ms:.4f}, plain ({plain_name}) "
+              f"{plain_ms:.4f}{plain_note}, library {_fmt(lib_ms)}{lib_note} | host ms "
+              f"per call: kernel {host_ms:.4f} | bound {bms:.4f} ms (bytes), "
+              f"{100 * bms / ms:.1f}% of bound", flush=True)
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": "src/repro/optim/adamw.py:" + ("22" if name == "sumsq" else "27"),
+            "launches": 0, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "bytes",
+            "library_ms": lib_ms, "shapes": [{"shape": label, "tensors": len(layout),
+                                              "parameters": n, "bytes": nbytes}]}
+    ms, host_ms, _ = whole["kernel"]
+    plain_ms = whole["global_norm"][0] + whole["apply_update"][0]
+    bms = (norm_bytes + update_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"adamw_update {label} on the card (norm + update): device ms {ms:.4f}, host "
+          f"ms {host_ms:.4f}; the plain path (global_norm + apply_update) "
+          f"{plain_ms:.4f}; bound {bms:.4f} ms (bytes), {100 * bms / ms:.1f}% of bound",
+          flush=True)
+    return entries
+
+
 # device kernels of a training step by group, from their names in the
 # profiler (bf16 ragged_matmul, ragged_swiglu and fused_moe's up and down
 # passes are the Hopper mainloop, named by their epilogues)
@@ -1469,10 +1624,11 @@ def check_peaks(peaks: dict, who: str = "") -> None:
 
 
 def train_phase() -> dict:
-    """Drive the port's training entry point; returns the four kernels'
-    launch counts from this run."""
+    """Drive the port's training entry point; returns the path's kernels'
+    launch counts from this run (the expert leg's and AdamW's)."""
     phase("train")
     import torch
+    from repro_torch.kernels import adamw_cuda
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels.fused_moe import fused_moe
     from repro_torch.kernels.ragged_mlp import ragged_matmul
@@ -1483,7 +1639,7 @@ def train_phase() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = (dc.scatter_rows, dc.gather_combine, ragged_matmul, fused_moe,
-                segment_outer)
+                segment_outer, adamw_cuda.sumsq, adamw_cuda.adamw_step)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1602,6 +1758,7 @@ def train_ragged_phase() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.moe import DistContext
+    from repro_torch.kernels import adamw_cuda
     from repro_torch.kernels import dispatch_cuda as dc
     from repro_torch.kernels.fused_moe import fused_moe
     from repro_torch.kernels.ragged_mlp import ragged_matmul, ragged_swiglu
@@ -1612,7 +1769,7 @@ def train_ragged_phase() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = (dc.scatter_rows, dc.gather_combine, ragged_swiglu, ragged_matmul,
-                segment_outer)
+                segment_outer, adamw_cuda.sumsq, adamw_cuda.adamw_step)
     for fn in (*counters, fused_moe):
         fn.launches = 0
     t0 = time.perf_counter()
@@ -4412,6 +4569,7 @@ def run_phases() -> int:
     entries = kernels_phase()
     entries.update(train_kernels_phase())
     entries.update(attention_kernels_phase())
+    entries.update(optimizer_kernels_phase())
     # each path's launches, its counts set to 0 just before it and read just after
     launches, served = serve_phase()
     paths = {"serve": launches}

@@ -74,13 +74,13 @@ def _ctype(a):
 def wrappers() -> tuple:
     """Every kernel wrapper of the port, each counting its launches in
     ``.launches`` (a captured step adds its recorded launches at replay)."""
-    from repro_torch.kernels import (dispatch_cuda, flash_attention, fused_moe,
-                                     grouped_mlp, ragged_mlp, weight_grad)
+    from repro_torch.kernels import (adamw_cuda, dispatch_cuda, flash_attention,
+                                     fused_moe, grouped_mlp, ragged_mlp, weight_grad)
     return (grouped_mlp.grouped_swiglu, grouped_mlp.grouped_matmul,
             ragged_mlp.ragged_swiglu, ragged_mlp.ragged_matmul,
             fused_moe.fused_moe, dispatch_cuda.scatter_rows,
             dispatch_cuda.gather_combine, weight_grad.segment_outer,
-            flash_attention.flash_attention)
+            flash_attention.flash_attention, adamw_cuda.sumsq, adamw_cuda.adamw_step)
 
 
 def launch(library: str, symbol: str, args: list, device: torch.device) -> None:

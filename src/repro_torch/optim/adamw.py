@@ -6,13 +6,17 @@ correction, decoupled weight decay.  The JAX version maps over the whole
 tree at once and writes new arrays; at full width that would add an fp32
 copy of every gradient plus new moment tensors (about 38 GB for two
 Mixtral-8x7B layers), so this one updates the moments and the parameters in
-place, one tensor at a time, through two fp32 working slices.
+place, one tensor at a time, through two fp32 working slices.  On the card
+the kernels of ``kernels/adamw_cuda.py`` do the same arithmetic in one pass
+over each element (``csrc/adamw.cu``), with no working slices; the sliced
+loop stays the CPU's path and the kernels' oracle.
 
 The update is the second half of the train step's transaction
-(``training/step.py``): every allocation it makes (the clipping scale, the
-bias corrections on each device, the working slices) comes before its first
-write, so an out-of-memory error leaves the parameters and moments as they
-were, and the OOM ladder (``runtime/guard.py``) can retry the step.
+(``training/step.py``): every allocation it makes (contiguous copies of
+the gradients, the norm, the clipping scale and, on the plain path, the
+bias corrections on each device and the working slices) comes before its
+first write, so an out-of-memory error leaves the parameters and moments
+as they were, and the OOM ladder (``runtime/guard.py``) can retry the step.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.runtime import spans
 
 
 class AdamWState(NamedTuple):
@@ -74,24 +80,21 @@ def _workspace(n: int, device) -> torch.Tensor:
     return torch.empty((2, n), dtype=torch.float32, device=device)
 
 
-@torch.no_grad()
-def adamw_update(grads: list, state: AdamWState, params: list, *, lr: float,
-                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0,
-                 sharded=None, reduce=None):
-    """Update ``params`` and the moments in place; returns (state, metrics).
-    A gradient of None is a zero gradient (weight decay still applies).
-    ``sharded`` and ``reduce`` make the clipping norm the whole model's
-    across EP ranks (``global_norm``).  Nothing is written until every
-    allocation has succeeded; from the first write to the return nothing is
-    allocated.  The per-element arithmetic and its rounding points are the
-    JAX package's, slice by slice."""
-    gnorm = global_norm(grads, sharded, reduce)
-    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
+def bias_corrections(b1: float, b2: float, step: int) -> tuple:
+    """1 - b1**step and 1 - b2**step, as 0-d fp32 tensors on the CPU."""
     f32 = torch.float32
-    bc1 = 1 - torch.tensor(b1, dtype=f32) ** step
-    bc2 = 1 - torch.tensor(b2, dtype=f32) ** step
+    return 1 - torch.tensor(b1, dtype=f32) ** step, 1 - torch.tensor(b2, dtype=f32) ** step
+
+
+@torch.no_grad()
+def apply_update(grads: list, mu: list, nu: list, params: list, scale: torch.Tensor,
+                 bc1: torch.Tensor, bc2: torch.Tensor, *, lr: float, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1) -> None:
+    """The plain update, given the clipping ``scale`` and the bias
+    corrections ``bc1``, ``bc2`` (0-d fp32 tensors): ``params``, ``mu`` and
+    ``nu`` in place, slice by slice, through two fp32 working slices made
+    before the first write.  It runs on any device; ``adamw_update`` gives
+    it the CPU's tensors, and on the card it is the kernel's oracle."""
     for p in params:
         if not p.is_contiguous():
             raise ValueError("adamw_update updates contiguous parameters in place")
@@ -101,7 +104,7 @@ def adamw_update(grads: list, state: AdamWState, params: list, *, lr: float,
     n = min(_SLICE_ELEMS, max((p.numel() for p in params), default=1))
     work = {d: _workspace(n, d) for d in devices}
     # -- the first write: from here to the return nothing is allocated
-    for p, g, m, v in zip(params, grads, state.mu, state.nu):
+    for p, g, m, v in zip(params, grads, mu, nu):
         s, c1, c2 = consts[p.device]
         buf_a, buf_b = work[p.device]
         pv, mv, vv = p.view(-1), m.view(-1), v.view(-1)
@@ -120,6 +123,54 @@ def adamw_update(grads: list, state: AdamWState, params: list, *, lr: float,
             b.copy_(pv[i:j])                             # pf
             a.add_(b, alpha=weight_decay)
             pv[i:j].copy_(b.add_(a, alpha=-lr))
+
+
+def _card(tensors) -> Optional[torch.device]:
+    """The first CUDA device among ``tensors``, or None."""
+    return next((t.device for t in tensors if t is not None and t.is_cuda), None)
+
+
+def _card_norm(grads, sharded, reduce, device) -> torch.Tensor:
+    """``global_norm`` by the kernels of ``kernels/adamw_cuda.py``: the
+    squares summed on the device in one pass over each gradient, the
+    sharded part summed over the EP group between the two kernels."""
+    from repro_torch.kernels import adamw_cuda
+    total, split = adamw_cuda.sumsq(grads, sharded, device=device)
+    if reduce is not None:
+        split = reduce(split)
+    return torch.sqrt(total + split)
+
+
+@torch.no_grad()
+def adamw_update(grads: list, state: AdamWState, params: list, *, lr: float,
+                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 sharded=None, reduce=None):
+    """Update ``params`` and the moments in place; returns (state, metrics).
+    A gradient of None is a zero gradient (weight decay still applies).
+    ``sharded`` and ``reduce`` make the clipping norm the whole model's
+    across EP ranks (``global_norm``).  Nothing is written until every
+    allocation has succeeded; from the first write to the return nothing is
+    allocated.  On the CPU the update is ``apply_update``, the JAX
+    package's per-element arithmetic and rounding points, slice by slice;
+    CUDA tensors go to the kernels of ``kernels/adamw_cuda.py`` (the same
+    operations, each element read and written once), or raise."""
+    card = _card([*params, *grads])
+    if card is not None:
+        grads = [g if g is None or g.is_contiguous() else g.contiguous() for g in grads]
+    gnorm = (_card_norm(grads, sharded, reduce, card) if card is not None
+             else global_norm(grads, sharded, reduce))
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state.step + 1
+    bc1, bc2 = bias_corrections(b1, b2, step)
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if card is not None:
+        from repro_torch.kernels import adamw_cuda
+        adamw_cuda.adamw_step(grads, state.mu, state.nu, params, scale, bc1.item(),
+                              bc2.item(), **hyper)
+    else:
+        apply_update(grads, state.mu, state.nu, params, scale, bc1, bc2, **hyper)
+    spans.count("adamw.elems", sum(p.numel() for p in params))
     return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm}
 
 

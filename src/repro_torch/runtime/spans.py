@@ -38,8 +38,11 @@ The training step's spans (``training/trainer.py``, ``training/step.py``,
     train.optimizer clipping norm, AdamW, router-bias steps (device)
     train.readback  the step's one sync, the loss read back
 
-and the counter ``fcda.chunk_runs``: each run of an FCDA chunk body, in the
-forward or either recompute.
+and the counters ``fcda.chunk_runs``: each run of an FCDA chunk body, in the
+forward or either recompute; ``adamw.elems``: the parameter elements each
+AdamW update touches (``optim/adamw.py``), on any path; and
+``adamw.fused_elems``: those the card's one-pass kernel updated
+(``kernels/adamw_cuda.py``).
 """
 
 from __future__ import annotations

@@ -1518,12 +1518,14 @@ def test_ragged_swiglu_and_flash_attention_take_the_plain_version_on_the_cpu():
 # ---------------------------------------------------------------------------
 
 def _per_tensor_adamw(grads, mu, nu, params, step, lr, b1=0.9, b2=0.95, eps=1e-8,
-                      weight_decay=0.1, clip_norm=1.0):
+                      weight_decay=0.1, clip_norm=1.0, scale=None):
     """The update ``optim/adamw.py`` ran before it was sliced: one tensor at
-    a time, its fp32 temporaries made after earlier tensors were written."""
+    a time, its fp32 temporaries made after earlier tensors were written;
+    ``scale``, when given, in place of the one ``global_norm`` gives."""
     from repro_torch.optim.adamw import global_norm
-    gnorm = global_norm(grads)
-    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    if scale is None:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** step
     bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** step
     for p, g, m, v in zip(params, grads, mu, nu):
@@ -1537,38 +1539,137 @@ def _per_tensor_adamw(grads, mu, nu, params, step, lr, b1=0.9, b2=0.95, eps=1e-8
         p.copy_(pf.add_(u, alpha=-lr))
 
 
+def _adamw_tensors(cuda, seed=0):
+    """Parameters, gradients and moments that reach every path of
+    ``csrc/adamw.cu``: bf16 and fp32 parameters (each gradient of its
+    parameter's type), a missing gradient, sizes off the vector width, a
+    tensor of several chunks (16384 elements each) with a tail, a gradient
+    that is a transposed view (``adamw_update`` makes it contiguous before
+    the norm), and a parameter whose view starts 2 bytes off a 16-byte
+    boundary (the scalar loop)."""
+    gen = torch.Generator().manual_seed(seed)
+    specs = [((64, 48), torch.bfloat16, True), ((5,), torch.float32, None),
+             ((3001,), torch.bfloat16, True), ((7, 301), torch.float32, True),
+             ((3, 16389), torch.bfloat16, True), ((40, 24), torch.bfloat16, "transposed"),
+             ((129,), torch.float32, True), ((1001,), torch.bfloat16, True)]
+    params, grads = [], []
+    for shape, dt, grad in specs:
+        params.append(torch.randn(shape, generator=gen).to(cuda, dt))
+        if grad is None:
+            grads.append(None)
+        elif grad == "transposed":
+            grads.append((torch.randn(shape[::-1], generator=gen) * 3).to(cuda, dt).t())
+        else:
+            grads.append((torch.randn(shape, generator=gen) * 3).to(cuda, dt))
+    assert not grads[5].is_contiguous()
+    base = torch.empty(params[-1].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    params[-1] = base[1:].copy_(params[-1])
+    assert params[-1].data_ptr() % 16 and params[-1].is_contiguous()
+    mu = [torch.randn(p.shape, generator=gen).to(cuda) for p in params]
+    nu = [torch.rand(p.shape, generator=gen).to(cuda) for p in params]
+    return params, grads, mu, nu
+
+
 @pytest.mark.cuda
-def test_adamw_allocates_nothing_after_its_first_write(cuda, monkeypatch):
-    """From AdamW's first write to its return the allocator makes nothing
-    (its workspace is the last allocation), and the sliced update equals the
-    per-tensor one bit for bit."""
+def test_adamw_kernel_is_bit_equal_to_the_plain_sliced_update(cuda, monkeypatch):
+    """``csrc/adamw.cu``'s update, given the same clipping scale and bias
+    corrections, writes the bits ``optim/adamw.py::apply_update`` (the
+    sliced loop of PyTorch elementwise kernels) writes on the card, over
+    several steps, on every path of the kernel."""
+    from repro_torch.kernels import adamw_cuda
     from repro_torch.optim import adamw
     monkeypatch.setattr(adamw, "_SLICE_ELEMS", 1000)      # several slices a tensor
-    gen = torch.Generator().manual_seed(0)
-    specs = [((64, 48), torch.bfloat16), ((5,), torch.float32), ((3000,), torch.bfloat16),
-             ((7, 300), torch.float32)]
-    params = [torch.randn(s, generator=gen).to(cuda, dt) for s, dt in specs]
-    grads = [torch.randn(s, generator=gen).to(cuda, dt) * 3 for s, dt in specs]
-    grads[1] = None
-    state = adamw.adamw_init(params)
-    for m, v in zip(state.mu, state.nu):
-        m.normal_()
-        v.uniform_()
-    twin = ([p.clone() for p in params], [m.clone() for m in state.mu],
-            [v.clone() for v in state.nu])
+    params, grads, mu, nu = _adamw_tensors(cuda)
+    twin = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    before = adamw_cuda.adamw_step.launches
+    hyper = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    for step in range(1, 4):
+        gen = torch.Generator().manual_seed(100 + step)
+        grads = [None if g is None else (torch.randn(g.shape, generator=gen) * 3).to(cuda, g.dtype)
+                 for g in grads]
+        gnorm = adamw.global_norm(grads)
+        scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+        bc1, bc2 = adamw.bias_corrections(0.9, 0.95, step)
+        adamw_cuda.adamw_step(grads, mu, nu, params, scale, bc1.item(), bc2.item(), **hyper)
+        adamw.apply_update(grads, twin[1], twin[2], twin[0], scale, bc1, bc2, **hyper)
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(zip(params + mu + nu, twin[0] + twin[1] + twin[2])):
+            assert torch.equal(got, want), (step, i)
+    # one table per parameter type
+    assert adamw_cuda.adamw_step.launches == before + 3 * 2
+    # a gradient of another type than its parameter's is refused before a launch
+    with pytest.raises(ValueError, match="gradients"):
+        adamw_cuda.adamw_step([grads[0].float()], mu[:1], nu[:1], params[:1], scale, 1.0,
+                              1.0, **hyper)
+    assert adamw_cuda.adamw_step.launches == before + 3 * 2
+
+
+@pytest.mark.cuda
+def test_adamw_norm_kernel_matches_global_norm_and_reruns_bit_for_bit(cuda):
+    """``sumsq``'s two sums agree with ``global_norm`` over the replicated
+    and the sharded tensors within 1e-6 relative (so does the card path's
+    norm with an EP reduce between its kernels), and a rerun gives the same
+    bits."""
+    from repro_torch.kernels import adamw_cuda
+    from repro_torch.optim import adamw
+    _, grads, _, _ = _adamw_tensors(cuda)
+    grads = [None if g is None else g.contiguous() for g in grads]
+    off = torch.empty(1002, dtype=torch.bfloat16, device=cuda)[1:]
+    grads = grads + [off.normal_(), torch.randn(1 << 20, device=cuda).to(torch.bfloat16)]
+    sharded = [i % 3 == 1 for i in range(len(grads))]
+    rep, shd = adamw_cuda.sumsq(grads, sharded)
+    again = adamw_cuda.sumsq(grads, sharded)
+    assert all(torch.equal(a, b) for a, b in zip((rep, shd), again))
+    for got, part in ((rep, False), (shd, True)):
+        want = adamw.global_norm([g for g, s in zip(grads, sharded) if s == part])
+        assert abs(got.sqrt().item() / want.item() - 1) < 1e-6
+    double = lambda t: t * 2                            # noqa: E731  two ranks, one slice
+    got = adamw._card_norm(grads, sharded, double, cuda)
+    want = adamw.global_norm(grads, sharded, double)
+    assert got.is_cuda and abs(got.item() / want.item() - 1) < 1e-6
+    zero = adamw_cuda.sumsq([None, None], device=cuda)
+    assert [t.item() for t in zero] == [0.0, 0.0]
+
+
+@pytest.mark.cuda
+def test_adamw_allocates_nothing_after_its_first_write(cuda, monkeypatch):
+    """From AdamW's first write (the update kernel's first launch) to its
+    return the allocator makes nothing: the norm's scratch, the clipping
+    scale and the bias corrections all come before it.  The card takes the
+    kernels (their launches and ``adamw.fused_elems`` count every element),
+    and the result equals the per-tensor update given the clipping scale of
+    the norm ``adamw_update`` returned, bit for bit."""
+    from repro_torch.kernels import adamw_cuda
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import spans
+    params, grads, mu, nu = _adamw_tensors(cuda)
+    state = adamw.AdamWState(4, mu, nu)
+    twin = ([p.clone() for p in params], [m.clone() for m in mu], [v.clone() for v in nu])
     seen = []
-    real = adamw._workspace
+    real = adamw_cuda._cuda.launch
 
-    def workspace(n, device):
-        w = real(n, device)
-        seen.append(torch.cuda.memory_stats()["allocation.all.allocated"])
-        return w
+    def launch(library, symbol, args, device):
+        if symbol.startswith("adamw_update") and not seen:
+            seen.append(torch.cuda.memory_stats()["allocation.all.allocated"])
+        return real(library, symbol, args, device)
 
-    monkeypatch.setattr(adamw, "_workspace", workspace)
-    new, _ = adamw.adamw_update(grads, state._replace(step=4), params, lr=1e-2)
-    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    monkeypatch.setattr(adamw_cuda._cuda, "launch", launch)
+    before = (adamw_cuda.sumsq.launches, adamw_cuda.adamw_step.launches)
+    spans.enable()
+    try:
+        new, metrics = adamw.adamw_update(grads, state, params, lr=1e-2)
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+        counts = spans.counters()
+    finally:
+        spans.enable(None)
+        spans.clear()
     assert len(seen) == 1 and after == seen[0]
-    _per_tensor_adamw(grads, twin[1], twin[2], twin[0], 5, 1e-2)
+    assert (adamw_cuda.sumsq.launches, adamw_cuda.adamw_step.launches) == (
+        before[0] + 3, before[1] + 2)
+    n = sum(p.numel() for p in params)
+    assert counts["adamw.elems"] == counts["adamw.fused_elems"] == n
+    scale = torch.clamp(1.0 / torch.clamp(metrics["grad_norm"], min=1e-9), max=1.0)
+    _per_tensor_adamw(grads, twin[1], twin[2], twin[0], 5, 1e-2, scale=scale)
     for got, want in zip(params + new.mu + new.nu, twin[0] + twin[1] + twin[2]):
         assert torch.equal(got, want)
 

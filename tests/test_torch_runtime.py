@@ -557,3 +557,94 @@ def test_sliced_adamw_equals_the_per_tensor_update(monkeypatch):
         p.copy_(pf.add_(u, alpha=-1e-2))
     for got, want in zip(params + state.mu + state.nu, p2 + m2 + v2):
         assert torch.equal(got, want)
+
+
+def _adamw_case(seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    specs = [((64, 48), torch.bfloat16), ((5,), torch.float32), ((3001,), torch.float32),
+             ((7, 301), torch.bfloat16)]
+    params = [torch.randn(s, generator=gen).to(dt) for s, dt in specs]
+    grads = [torch.randn(s, generator=gen).to(dt) * 3 for s, dt in specs]
+    grads[1] = None
+    state = adamw.adamw_init(params)
+    for m, v in zip(state.mu, state.nu):
+        m.normal_(generator=gen)
+        v.uniform_(generator=gen)
+    return params, grads, state._replace(step=4)
+
+
+def test_adamw_update_is_its_norm_then_the_plain_half_given_scale_and_corrections():
+    """On the CPU ``adamw_update`` is ``global_norm``, the clipping scale,
+    ``bias_corrections`` and then ``apply_update`` given those three
+    tensors: the plain half that the card's kernel is held to."""
+    params, grads, state = _adamw_case()
+    p2, m2, v2 = ([t.clone() for t in ts] for ts in (params, state.mu, state.nu))
+    new, metrics = adamw.adamw_update(grads, state, params, lr=1e-2)
+    gnorm = adamw.global_norm(grads)
+    assert torch.equal(metrics["grad_norm"], gnorm) and new.step == 5
+    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+    bc1, bc2 = adamw.bias_corrections(0.9, 0.95, 5)
+    assert bc1.dtype == bc2.dtype == torch.float32 and bc1.dim() == bc2.dim() == 0
+    assert bc1.item() == (1 - torch.tensor(0.9) ** 5).item()
+    adamw.apply_update(grads, m2, v2, p2, scale, bc1, bc2, lr=1e-2)
+    for got, want in zip(params + new.mu + new.nu, p2 + m2 + v2):
+        assert torch.equal(got, want)
+
+
+def test_adamw_counts_the_elements_it_updates_and_none_by_the_kernel_on_the_cpu():
+    """``adamw.elems`` counts every parameter's elements an update touches;
+    ``adamw.fused_elems`` those the card's kernel updated: none on the CPU.
+    Nothing is counted while the recorder is off."""
+    from repro_torch.runtime import spans
+    params, grads, state = _adamw_case(1)
+    try:
+        spans.enable(False)
+        adamw.adamw_update(grads, state, params, lr=1e-2)
+        assert spans.counters() == {}
+        spans.enable()
+        state = adamw.adamw_update(grads, state, params, lr=1e-2)[0]
+        adamw.adamw_update(grads, state, params, lr=1e-2)
+        got = spans.counters()
+    finally:
+        spans.enable(None)
+        spans.clear()
+    assert got["adamw.elems"] == 2 * sum(p.numel() for p in params)
+    assert got.get("adamw.fused_elems", 0) == 0
+
+
+def test_the_adamw_kernels_take_cuda_tensors_only():
+    """The card's wrappers refuse CPU tensors and tensors on two devices
+    (``optim/adamw.py`` never sends them the CPU's), and check types and
+    sizes before anything is launched."""
+    from repro_torch.kernels import adamw_cuda
+    params, grads, state = _adamw_case()
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adamw_cuda.adamw_step(grads, state.mu, state.nu, params, one, 1.0, 1.0,
+                              lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adamw_cuda.sumsq(grads)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adamw_cuda.sumsq([None], device="cpu")
+    with pytest.raises(ValueError, match="first moments"):
+        adamw_cuda._check("adamw_step", torch.ones(3, dtype=torch.bfloat16), 3,
+                          (torch.float32,), "first moments")
+    with pytest.raises(ValueError, match="contiguous with 4 elements"):
+        adamw_cuda._check("adamw_step", torch.ones(3), 4, (torch.float32,), "parameters")
+
+
+def test_the_adamw_kernel_tables_group_by_type_in_order_and_split_when_full():
+    """A launch's table holds the rows of one key, in the rows' order, at
+    most ``MAX_TENSORS`` of them; one more row opens a second table."""
+    from repro_torch.kernels import adamw_cuda
+    n = adamw_cuda.MAX_TENSORS
+    rows = [(torch.bfloat16, i, i, i, i, i + 1, 1) for i in range(n + 1)]
+    rows.insert(3, (torch.float32, 99, 98, 97, 96, 95, 0))
+    tables = adamw_cuda._tables(rows)
+    assert [(key, count) for key, _, count in tables] == [
+        (torch.bfloat16, n), (torch.bfloat16, 1), (torch.float32, 1)]
+    first, second, other = (desc for _, desc, _ in tables)
+    assert first.dtype == torch.int64 and tuple(first.shape) == (n, 6)
+    assert first[:, 0].tolist() == list(range(n)) and second.tolist() == [[n] * 4 + [n + 1, 1]]
+    assert other.tolist() == [[99, 98, 97, 96, 95, 0]]
+    assert adamw_cuda._aligned(None, torch.empty(8))

@@ -8,8 +8,9 @@
   recorder on and its end turns it off.
 * One step of the reduced Mixtral under ``remat_policy="memfine"`` (the EP
   strategy at one peer, the fused leg) records each layer's recompute, each
-  chunk checkpoint's recompute, each attention backward and each run of an
-  FCDA chunk body, and every ``attn.bwd`` inside ``train.backward``.
+  chunk checkpoint's recompute, each attention backward, each run of an
+  FCDA chunk body and AdamW's updated elements, and every ``attn.bwd``
+  inside ``train.backward``.
 * The step's loss, gradients and updated state are bitwise those of the
   same step with the recorder off."""
 
@@ -191,8 +192,10 @@ def test_one_memfine_step_records_each_recompute_and_chunk_run(chunks, depth):
     assert len(by["attn.bwd"]) == layers
     # chunk bodies: c in the forward, c again in the chunk recomputes, and
     # c - depth in the layer's recompute, which stops (early stop) once the
-    # last wave's input is saved again, before that wave runs
-    assert spans.counters() == {"fcda.chunk_runs": layers * (3 * chunks - depth)}
+    # last wave's input is saved again, before that wave runs; AdamW counts
+    # every parameter element it updated, none of them by the card's kernel
+    assert spans.counters() == {"fcda.chunk_runs": layers * (3 * chunks - depth),
+                                "adamw.elems": sum(p.numel() for p in param_list(state.params))}
     (step,), (bwd,) = by["train.step"], by["train.backward"]
     for r in recs:
         assert step.start_ns <= r.start_ns <= r.end_ns <= step.end_ns, r.name
