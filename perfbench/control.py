@@ -53,7 +53,7 @@ def train_seed(cell, drv) -> dict:
     leaves = {k: {"grad": v["grad_norms"], "delta": v["delta_norms"], "loss": v["loss"]}
               for k, v in (("program", prog), ("reference", ref), ("control", ctl),
                            ("half_batch", half))}
-    return {"leaves": [path for path, *_ in drv.weights.plan(cell.spec)], "readings": leaves,
+    return {"leaves": [path for path, *_ in cell.arch.plan(cell.spec)], "readings": leaves,
             "program": check.train_gaps(prog, ref), "control": check.train_gaps(ctl, ref),
             "half_batch": check.train_gaps(half, ref), "chunks": chunks,
             "peak_gb": (torch.cuda.max_memory_allocated() / 1e9

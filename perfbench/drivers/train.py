@@ -12,9 +12,11 @@ and state then run the window: whole steps through ``Trainer.fit(1)``
 until ``seconds`` have passed.  The batches were made in set-up; their
 copy to the device is inside each step.
 
-After the window the program's state is freed and the plain reference
-(``reference/mixtral.py``) runs the same three steps in fp32 from the
-same weights and rows.
+After the window the program's state is freed and the configuration's
+plain reference (``cell.reference``) runs the same three steps in fp32
+from the same weights and rows.  The weights' leaves come from the
+configuration's architecture file (``cell.arch.plan``); this driver reads
+only the spec's generic keys (``perfbench/spec.py``).
 """
 
 from __future__ import annotations
@@ -28,12 +30,10 @@ import time
 import torch
 
 from perfbench import check, generator, weights
-from perfbench.reference import mixtral as ref
 from perfbench.reference.common import Prec, no_tf32
 
 LR = 3e-4
 WARM = 3           # the checked steps, which are also the warm-up
-B1 = ref.ADAMW["b1"]
 
 
 class Feed:
@@ -49,7 +49,7 @@ def build(cell):
     from repro_torch.training.step import make_train_state
     from repro_torch.training.trainer import Trainer
     mix = cell.mix
-    params = weights.make(cell.spec, cell.seed, cell.device, cell.dtype)
+    params = weights.make(cell.arch.plan(cell.spec), cell.seed, cell.device, cell.dtype)
     ctx = DistContext(device=torch.device(cell.device), moe_strategy="ep_shardmap",
                       moe_fused=True)
     trainer = Trainer(cell.pcfg, ctx, seq_len=int(mix["seq_len"]),
@@ -60,11 +60,11 @@ def build(cell):
 
 
 @torch.no_grad()
-def _delta_norms(params: list, spec: dict, seed: int, device, dtype) -> list:
+def _delta_norms(params: list, plan: list, seed: int, device, dtype) -> list:
     """Per leaf, the norm of (now - initial), the initial leaf made again."""
     out = []
     for i, p in enumerate(params):
-        p0 = weights.leaf(spec, seed, i, device, dtype).reshape(-1)
+        p0 = weights.leaf(plan, seed, i, device, dtype).reshape(-1)
         pv, acc = p.detach().reshape(-1), 0.0
         for a in range(0, pv.numel(), 1 << 26):
             acc += float((pv[a:a + (1 << 26)].double() - p0[a:a + (1 << 26)].double())
@@ -88,14 +88,15 @@ def sample_index(numel: int, seed: int, leaf: int, device) -> torch.Tensor:
 def warm(trainer, state, cell):
     """The first WARM steps; returns (state, the program's readings)."""
     state = trainer.fit(1, state)
+    b1 = cell.reference.ADAMW["b1"]
     scale = min(1.0, 1.0 / max(trainer.log[0]["grad_norm"], 1e-9))
-    grad = [float(m.norm()) / (1 - B1) / scale for m in state.opt.mu]
+    grad = [float(m.norm()) / (1 - b1) / scale for m in state.opt.mu]
     sample = [(m.reshape(-1)[sample_index(m.numel(), cell.seed, i, m.device)]
-               / ((1 - B1) * scale)).cpu() for i, m in enumerate(state.opt.mu)]
+               / ((1 - b1) * scale)).cpu() for i, m in enumerate(state.opt.mu)]
     state = trainer.fit(WARM - 1, state)
     from repro_torch.optim.adamw import param_list
-    delta = _delta_norms(param_list(state.params), cell.spec, cell.seed, cell.device,
-                         cell.dtype)
+    delta = _delta_norms(param_list(state.params), cell.arch.plan(cell.spec), cell.seed,
+                         cell.device, cell.dtype)
     return state, {"loss": [r["loss"] for r in trainer.log[:WARM]],
                    "grad_norms": grad, "delta_norms": delta, "grad_sample": sample,
                    "chunks": [r["chunks"] for r in trainer.log[:WARM]]}
@@ -115,7 +116,8 @@ def reference_readings(cell, chunks: list, prec: Prec, rows=None) -> dict:
     leaf of the program's tree."""
     if torch.device(cell.device).type == "cuda":
         no_tf32()
-    tree = weights.make(cell.spec, cell.seed, cell.device, cell.dtype)
+    plan = cell.arch.plan(cell.spec)
+    tree = weights.make(plan, cell.seed, cell.device, cell.dtype)
     sizes = [t.shape[0] if t.dim() == 3 else 1 for t in weights.flat(tree)]
     params = _tree_map(tree, _reference_leaf)
     del tree
@@ -140,13 +142,14 @@ def reference_readings(cell, chunks: list, prec: Prec, rows=None) -> dict:
             at += n
         return out
 
-    out = ref.train(params, batches, cell.spec, chunks, LR, prec, rows=rows, sample=sample)
+    out = cell.reference.train(params, batches, cell.spec, chunks, LR, prec, rows=rows,
+                               sample=sample)
     parts, grads, at = weights.flat(params), [], 0
     delta = []
     with torch.no_grad():
         for i, n in enumerate(sizes):
             grads.append(math.sqrt(sum(g * g for g in out["grad_norms"][at:at + n])))
-            p0 = weights.leaf(cell.spec, cell.seed, i, cell.device, cell.dtype)
+            p0 = weights.leaf(plan, cell.seed, i, cell.device, cell.dtype)
             p0 = p0.reshape(n, *parts[at].shape) if n > 1 else p0[None]
             delta.append(math.sqrt(sum(float((parts[at + e].double() - p0[e].double())
                                              .pow(2).sum()) for e in range(n))))

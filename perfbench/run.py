@@ -3,13 +3,18 @@
   python3 perfbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads`` entry) names a configuration
-file (``perfbench/configs/<config>.json``: the published keys as run, the
-program's registry entry with its depth and the fields the file sets, and
-the driver that runs it) and a
-traffic mix (``perfbench/traffic/<traffic>.json``, read by
-``perfbench/generator.py``).  The driver (``perfbench/drivers/<driver>.py``)
-builds the program on the benchmark's weights, warms it, runs the window,
-and checks what the window's entry produced against the plain reference.
+file and a traffic mix (``perfbench/traffic/<traffic>.json``, read by
+``perfbench/generator.py``).  The configuration file
+(``perfbench/configs/<config>.json``: the published keys as run, the
+program's registry entry with its depth and the fields the file sets)
+names the files that read it: its architecture file
+(``perfbench/arch/<arch>.py``: the shapes, the weights' leaves and the
+work counts of that model's layout), its plain reference (``reference``, a
+path under ``perfbench/``) and its driver
+(``perfbench/drivers/<driver>.py``).  So a new model comes in as new files.
+The driver builds the program on the benchmark's weights, warms it, runs
+the window, and checks what the window's entry produced against the plain
+reference.
 
 With ``--trace 0`` the line's metrics are the cell's end-to-end metrics;
 with ``--trace 1`` the window runs under the profiler and the metrics are
@@ -84,7 +89,11 @@ class Cell:
         self.name, self.seed, self.seconds, self.trace = workload, seed, seconds, trace
         self.config = spec.load_config_file(self.entry["config"], root)
         self.mix = generator.load_traffic_file(self.entry["traffic"], root)
-        self.spec = spec.spec_from_file(self.config)
+        arch = self.config["arch"]
+        self.arch = load_module(root / "arch" / f"{arch}.py", "perfbench_arch_" + arch)
+        ref = Path(self.config["reference"])
+        self.reference = load_module(root / ref, "perfbench_reference_" + ref.stem)
+        self.spec = self.arch.spec_from_file(self.config)
         self.limits = check.load_limits(workload, root)
         self.chips = int(self.entry.get("chips", 1))
         self.bench, self.root = bench, root
@@ -100,7 +109,7 @@ class Cell:
         port = self.config["port"]
         self.pcfg = port_config(get_config(port["arch"]), port)
         self.dtype = getattr(torch, self.config["dtype"])
-        bad = spec.mismatches(self.spec, spec.spec_from_port(self.pcfg))
+        bad = spec.mismatches(self.spec, self.arch.spec_from_port(self.pcfg))
         if bad:
             raise SystemExit(f"the program's {port['arch']!r} differs from "
                              f"configs/{self.entry['config']}.json on {bad}")
@@ -149,11 +158,11 @@ def read_per_layer(bench: dict, cell: Cell, run) -> dict:
 
 
 class RunView:
-    """What a per-layer metric reader sees: the cell, the driver's record
-    and the traced window."""
+    """What a per-layer metric reader sees: the cell, its spec and
+    architecture file, the driver's record and the traced window."""
 
     def __init__(self, cell: Cell, record: dict, window):
-        self.cell, self.spec, self.mix = cell, cell.spec, cell.mix
+        self.cell, self.spec, self.arch, self.mix = cell, cell.spec, cell.arch, cell.mix
         self.record, self.window = record, window
 
 

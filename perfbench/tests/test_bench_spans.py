@@ -2,7 +2,8 @@
 metrics) on a synthetic window and synthetic span records: a gap goes to
 the innermost span covering its midpoint, across threads, or to none;
 values are per step; nothing recorded, or no recorder, reads None; and the
-six metrics are found by name from ``BENCHMARK.json``."""
+six metrics are found by name from ``BENCHMARK.json``, in the order it
+lists them (metrics added later may follow them)."""
 
 import json
 import sys
@@ -130,7 +131,7 @@ def test_the_six_metrics_are_found_by_name(recorder):
         m = entries[name]
         assert m["moves"] == "train_tokens_per_s" and m["workloads"] == CELLS
         assert (run.HERE / "metrics" / f"{name}.py").is_file()
-    assert [m["name"] for m in bench["per_layer"]][-6:] == list(NEW)
+    assert [m["name"] for m in bench["per_layer"] if m["name"] in NEW] == list(NEW)
     cell = run.Cell(bench, CELLS[0], 5, 1.0, True)
     record = {"steps": [{"chunks": 8}] * 2, "batch": 8, "seq": 4096, "tokens": 2 * 8 * 4096,
               "peak_bytes": 1, "modeled_bytes": 1}

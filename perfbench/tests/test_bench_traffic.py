@@ -1,13 +1,14 @@
 """The traffic generator, and a cell, a mix and a metric found by name."""
 
-import hashlib
 import json
 import shutil
 
 import numpy as np
 
 from perfbench import generator, run
-from perfbench.spec import load_config_file, spec_from_file
+from perfbench.arch.mixtral import spec_from_file
+from perfbench.spec import load_config_file
+from perfbench.tests.cpu import digest
 
 ZIPF = generator.load_traffic_file("mixtral-s4k-b8-zipf")
 
@@ -31,16 +32,11 @@ def test_training_batches_are_seeded_zipf_rows_with_next_token_labels():
     assert len({tuple(r) for r in t}) == 8                    # rows all differ
 
 
-def _digest(root):
-    return {p.relative_to(root).as_posix(): hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
-
-
 def test_a_new_cell_mix_and_metric_are_found_by_name(tmp_path):
-    before = _digest(run.HERE)
+    before = digest(run.HERE)
     root = tmp_path / "perfbench"
     shutil.copytree(run.HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
-    shipped = _digest(root)
+    shipped = digest(root)
     cfg = load_config_file("mixtral-8x7b-2l")
     (root / "configs" / "mixtral-8x7b-4l.json").write_text(
         json.dumps({**cfg, "num_hidden_layers": 4, "port": {**cfg["port"], "num_layers": 4}}))
@@ -63,6 +59,6 @@ def test_a_new_cell_mix_and_metric_are_found_by_name(tmp_path):
     assert cell.driver().__name__ == "perfbench_driver_train"
     got = run.read_per_layer(bench, cell, run.RunView(cell, {"steps": [1, 2, 3]}, None))
     assert got == {"steps_in_window.train": {"value": 3.0, "unit": "steps"}}
-    after = _digest(root)
+    after = digest(root)
     assert {k: v for k, v in after.items() if k in shipped} == shipped
-    assert _digest(run.HERE) == before
+    assert digest(run.HERE) == before

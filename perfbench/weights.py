@@ -1,14 +1,17 @@
 """Random weights made by the benchmark from ``--seed``.
 
 The benchmark, not the program, makes the weights, so that the plain
-reference can be handed the same numbers.  They are laid out as the
-program takes them (``repro_torch.models.transformer.init_params``'s tree:
-``embed``, ``final_norm``, ``head``, and one dict per layer with
-``norm1``, ``mixer``, ``norm2`` and ``ffn``), with the same scales: the
-matrices in the trained type, the norms and the router in fp32.
+reference can be handed the same numbers.  What the leaves are comes from
+the cell's architecture file (``arch/<arch>.py``): its ``plan(spec)`` lists
+every leaf as (path, shape, kind, scale), in the order and with the
+scales of the program's own tree (``init_params``'s: ``embed``,
+``final_norm``, ``head``, and one dict per layer).  A path's parts are
+dict keys, ``layers/<i>`` a list entry.  ``kind`` is "normal" (a scaled
+normal in the trained type), "normal32" (the same in fp32), "ones32" or
+"zeros32".
 
 Every leaf comes from a generator of its own, seeded from ``--seed`` and
-the leaf's place in the tree, in one call on the target device.  So the
+the leaf's place in the plan, in one call on the target device.  So the
 weights of a seed are the same on every run, and any one leaf can be made
 again alone (``leaf``), which the training check uses to read the
 parameters' change without keeping a copy of the initial weights.
@@ -30,34 +33,9 @@ def leaf_seed(seed: int, index: int) -> int:
     return (z ^ (z >> 31)) & _MASK
 
 
-def plan(spec: dict) -> list:
-    """[(path, shape, kind, scale)] of every leaf, in the program's tree
-    order.  ``kind``: "normal" (scaled normal in the trained type),
-    "normal32" (fp32), "ones32", "zeros32"."""
-    d, V = spec["d_model"], spec["vocab"]
-    H, KH, hd = spec["n_heads"], spec["n_kv_heads"], spec["head_dim"]
-    out = [("embed", (V, d), "normal", 0.02), ("final_norm/scale", (d,), "ones32", 0),
-           ("head", (d, V), "normal", d ** -0.5)]
-    E, f = spec["n_experts"], spec["d_ff_expert"]
-    for i, _ in enumerate(spec["layers"]):
-        p = f"layers/{i}/"
-        out += [(p + "norm1/scale", (d,), "ones32", 0),
-                (p + "mixer/wq", (d, H * hd), "normal", d ** -0.5),
-                (p + "mixer/wk", (d, KH * hd), "normal", d ** -0.5),
-                (p + "mixer/wv", (d, KH * hd), "normal", d ** -0.5),
-                (p + "mixer/wo", (H * hd, d), "normal", (H * hd) ** -0.5),
-                (p + "norm2/scale", (d,), "ones32", 0),
-                (p + "ffn/router/w", (d, E), "normal32", d ** -0.5),
-                (p + "ffn/router/bias", (E,), "zeros32", 0),
-                (p + "ffn/w1", (E, d, f), "normal", d ** -0.5),
-                (p + "ffn/w3", (E, d, f), "normal", d ** -0.5),
-                (p + "ffn/w2", (E, f, d), "normal", f ** -0.5)]
-    return out
-
-
-def leaf(spec: dict, seed: int, index: int, device, dtype) -> torch.Tensor:
-    """Leaf ``index`` of ``plan(spec)``, made alone."""
-    _, shape, kind, scale = plan(spec)[index]
+def leaf(plan: list, seed: int, index: int, device, dtype) -> torch.Tensor:
+    """Leaf ``index`` of ``plan``, made alone."""
+    _, shape, kind, scale = plan[index]
     return _make(shape, kind, scale, leaf_seed(seed, index), device, dtype)
 
 
@@ -75,10 +53,10 @@ def _make(shape, kind, scale, gseed, device, dtype) -> torch.Tensor:
     raise ValueError(f"unknown leaf kind {kind!r}")
 
 
-def make(spec: dict, seed: int, device, dtype) -> dict:
-    """The whole tree, every leaf from its own seeded generator."""
+def make(plan: list, seed: int, device, dtype) -> dict:
+    """The whole tree of ``plan``, every leaf from its own seeded generator."""
     tree: dict = {}
-    for i, (path, shape, kind, scale) in enumerate(plan(spec)):
+    for i, (path, shape, kind, scale) in enumerate(plan):
         parts, node, j = path.split("/"), tree, 0
         while j < len(parts) - 1:
             if parts[j] == "layers":              # "layers/<i>": a list entry
