@@ -4,9 +4,11 @@ from repro_torch.configs.base import (
     AttentionSpec,
     HardwareProfile,
     LayerSpec,
+    MLASpec,
     ModelConfig,
     MoEConfig,
     SSMSpec,
+    YaRNSpec,
     get_config,
     registry,
 )

@@ -4,6 +4,13 @@ The port's own copy of the JAX package's config dataclasses, with the same
 fields and the same derived properties, so a config means the same model in
 both packages.  Layer structure is a *period pattern*: a short list of
 ``LayerSpec`` that repeats down the stack, after an optional unrolled prefix.
+
+The port adds fields the JAX package does not have, each defaulting to what
+every config of that package means, so those configs are the same model bit
+for bit: ``ModelConfig.mla`` and ``ModelConfig.yarn`` (DeepSeek-V3's latent
+attention and its RoPE scaling), and on ``MoEConfig`` the router's
+``scoring``, ``n_group``, ``topk_group`` and ``routed_scaling_factor`` and
+the ``experts_held`` of one chip.
 """
 
 from __future__ import annotations
@@ -33,6 +40,36 @@ class SSMSpec:
 
 
 @dataclass(frozen=True)
+class MLASpec:
+    """Multi-head latent attention (DeepSeek-V2/V3): the queries through a
+    ``q_lora_rank`` latent, the keys and values through a ``kv_lora_rank``
+    latent, each with its own RMSNorm; a ``qk_rope_head_dim`` RoPE part of
+    the key shared by every head beside each head's ``qk_nope_head_dim``
+    part; a ``v_head_dim`` value head."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class YaRNSpec:
+    """YaRN RoPE scaling (arXiv:2309.00071), as DeepSeek-V3's
+    ``rope_scaling`` states it."""
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One layer of the repeating period: a mixer plus an FFN kind."""
     mixer: str = "attn"         # "attn" | "mamba"
@@ -53,6 +90,16 @@ class MoEConfig:
     strategy: str = "auto"          # "auto" | "ep_shardmap" | "tp_gspmd" | "dense"
     capacity_mode: str = "dropless"
     capacity_factor: float = 1.25
+    scoring: str = "softmax"        # "softmax" | "sigmoid" (DeepSeek-V3)
+    n_group: int = 1                # expert groups; a token's experts come
+    topk_group: int = 1             # from its top ``topk_group`` groups
+    routed_scaling_factor: float = 1.0   # sigmoid: the weights' scale
+    experts_held: int = 0           # experts [0, held) on this chip; 0 = all
+
+    @property
+    def held(self) -> int:
+        """The experts this chip computes: [0, held)."""
+        return self.experts_held or self.num_experts
 
 
 @dataclass(frozen=True)
@@ -82,6 +129,8 @@ class ModelConfig:
     remat_policy: str = "memfine"
     moe_chunks: int = 1
     smoke_pattern: Optional[tuple[LayerSpec, ...]] = None
+    mla: Optional[MLASpec] = None   # every attention layer is MLA
+    yarn: Optional[YaRNSpec] = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -132,6 +181,13 @@ class ModelConfig:
                 d_ff_expert=d_model * 2,
                 num_shared_experts=min(self.moe.num_shared_experts, 1),
             )
+            moe = replace(moe, **_reduced_routing(self.moe, moe.num_experts,
+                                                  moe.top_k))
+        mla = self.mla and MLASpec(q_lora_rank=d_model // 2,
+                                   kv_lora_rank=d_model // 4,
+                                   qk_nope_head_dim=d_model // 8,
+                                   qk_rope_head_dim=d_model // 16,
+                                   v_head_dim=d_model // 8)
         ssm_small = SSMSpec(state_dim=16, head_dim=32, expand=2, conv_width=4, chunk=16)
         pat = tuple(replace(ls, ssm=ssm_small,
                             attn=replace(ls.attn, window=min(ls.attn.window, 64) if ls.attn.window else 0))
@@ -153,7 +209,25 @@ class ModelConfig:
             encoder_seq=min(self.encoder_seq, 32),
             num_patch_tokens=min(self.num_patch_tokens, 8),
             dtype="float32",
+            mla=mla,
         )
+
+
+def _reduced_routing(moe: MoEConfig, E: int, k: int) -> dict:
+    """The grouped router and the held share at ``E`` experts, top ``k``:
+    groups of at least two experts, enough kept groups to hold k experts,
+    and half the experts held where the config holds a share (defaults
+    stay defaults)."""
+    out: dict = {}
+    if moe.n_group > 1:
+        n_group = max(1, min(moe.n_group, E // 2))
+        size = E // n_group
+        keep = min(moe.topk_group, max(1, n_group // 2))
+        out.update(n_group=n_group,
+                   topk_group=min(n_group, max(keep, -(-k // size))))
+    if moe.experts_held and moe.experts_held < moe.num_experts:
+        out.update(experts_held=max(1, E // 2))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -177,14 +251,15 @@ H100_80G = HardwareProfile("h100-80g", 80e9, 989e12, 3.35e12, 450e9)
 
 
 # ---------------------------------------------------------------------------
-# registry: every architecture of the JAX package's registry
+# registry: every architecture of the JAX package's registry, and the port's
+# own DeepSeek-V3 (``deepseek_v3``), which the JAX package does not have
 # ---------------------------------------------------------------------------
 
 # config modules of this package: each defines ``CONFIG`` and may define
 # ``CONFIGS``, further variants (deepseek_mini: the paper's Model I and II)
 _MODULES = ("mixtral_8x7b", "jamba_1_5_large", "mamba2_130m", "deepseek_mini",
             "llama4_scout", "gemma3_27b", "llama3_2_3b", "yi_9b", "starcoder2_3b",
-            "whisper_small", "internvl2_76b")
+            "whisper_small", "internvl2_76b", "deepseek_v3")
 
 
 def registry() -> dict[str, ModelConfig]:

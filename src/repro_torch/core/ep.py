@@ -59,6 +59,15 @@ The local expert leg is one of:
   (serving kernels: no backward on the card).
 
 Both ragged-layout legs train.
+
+A held share (``MoEConfig.experts_held`` h < E, one peer only): the layer
+is one chip of an E / h-way EP group, rank 0's, holding experts [0, h).
+It routes every token over all E experts, the weights normalised over all
+k first, and plans as rank 0 of that group does: the one argsort groups
+the slots by the group's peers, and only rank 0's block is dispatched,
+computed and combined.  The absent experts' slots go nowhere: they are not
+drops, and ``load`` stays the router's (E,) view.  Nothing stands in for
+the absent ranks or their traffic.
 """
 
 from __future__ import annotations
@@ -273,13 +282,21 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
     world and the chunks.  ``placement``: this layer's PlacementSpec (module
     docstring); None or identity is the contiguous layout."""
     peers = _peers(mesh)
-    E = moe_cfg.num_experts
+    E, held = moe_cfg.num_experts, moe_cfg.held
+    if held < E and peers > 1:
+        raise ValueError(f"a held share ({held} of {E} experts) runs at one EP "
+                         f"peer; under a mesh each rank holds E / P experts")
+    if E % held:
+        raise ValueError(f"{held} held experts do not divide E={E}")
+    # the peers the plan groups by: the EP group's, or for a held share the
+    # E / h ranks of the group this chip is rank 0 of
+    plan_peers = peers if held == E else E // held
     placement = _applied(placement, E, peers)
     # under a placement the dispatch groups are slots: sorting by slot id
     # still groups by target peer (slots are peer-contiguous), and e_local
     # below is slots per peer
     n_groups = placement.total_slots if placement is not None else E
-    e_local = n_groups // peers
+    e_local = n_groups // plan_peers
     B, S, d = x.shape
     tokens = B * S
     x2 = x.reshape(tokens, d)
@@ -312,15 +329,21 @@ def moe_ffn_ep(params: dict, x: torch.Tensor, moe_cfg: MoEConfig, *,
             # target one peer: the exact worst case
             cap_send = t_c * min(k, e_local)
         else:
-            cap_send = dsp.balanced_capacity(t_c, k, peers, moe_cfg.capacity_factor)
-        uplan = dsp.make_unified_plan(sel, n_groups, peers, cap_send=cap_send)
-        send = dispatch_rows(xc, uplan.send_slots, peers * cap_send)
+            cap_send = dsp.balanced_capacity(t_c, k, plan_peers,
+                                             moe_cfg.capacity_factor)
+        uplan = dsp.make_unified_plan(sel, n_groups, plan_peers, cap_send=cap_send)
+        send_slots, counts, drops = uplan.send_slots, uplan.counts, uplan.drops
+        if plan_peers != peers:
+            # rank 0's block only: the other ranks' slots are theirs, not drops
+            send_slots = torch.where(send_slots < cap_send, send_slots, -1)
+            counts = counts[:1]
+            drops = (uplan.peer_load[0] - counts.sum()).to(torch.int32)
+        send = dispatch_rows(xc, send_slots, peers * cap_send)
         recv = _all_to_all(send.reshape(peers, cap_send, d), mesh)
-        recv_cnt = (uplan.counts if peers == 1
-                    else mesh.all_to_all(uplan.counts))
+        recv_cnt = counts if peers == 1 else mesh.all_to_all(counts)
         return {"recv": recv, "recv_cnt": recv_cnt,
-                "send_slots": uplan.send_slots, "weights": r.weights,
-                "aux_loss": r.aux_loss, "load": r.load, "drops_send": uplan.drops}
+                "send_slots": send_slots, "weights": r.weights,
+                "aux_loss": r.aux_loss, "load": r.load, "drops_send": drops}
 
     def stage_compute(st):
         """The local expert FFN over the received rows."""

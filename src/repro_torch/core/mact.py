@@ -8,7 +8,9 @@ or observed received tokens s''.  c is snapped to a bin of a threshold set
 depth) jointly, preferring the overlapped schedule when its extra live chunk
 still fits.  Between steps the trainer feeds back the expert load of the
 previous step; with no observation yet MACT plans for the worst case
-s' -> e*s*k.
+s' -> e*s*k.  A chip that holds a share of the experts
+(``MoEConfig.experts_held``) plans for the slots routed to its own experts:
+s'' is their load, the worst case b*s*min(k, h).
 
 ``choose_layer_schedules`` is the adaptive per-layer mode: fed the
 telemetry EMA of per-layer expert loads (core/telemetry.py), it resolves
@@ -51,6 +53,9 @@ class MACTController:
 
     def __post_init__(self):
         self.dims = mm.LayerDims.from_config(self.cfg)
+        moe = self.cfg.moe
+        self.held = (moe.held if moe is not None and moe.held < moe.num_experts
+                     else None)
         self.static = (self.static_override if self.static_override is not None
                        else mm.static_bytes(self.cfg, self.par, self.bytes_per_param))
 
@@ -71,6 +76,8 @@ class MACTController:
         expert's load split over its slots) instead of the contiguous
         identity layout."""
         load = np.asarray(load, dtype=np.float64)
+        if self.held is not None:
+            return float(load[:self.held].sum())
         if placement is not None:
             return float(placement.peer_loads(load).max())
         e = ep_size or self.par.e
@@ -81,6 +88,10 @@ class MACTController:
                 f"(length a multiple of the EP group size) or the matching "
                 f"ep_size")
         return float(load.reshape(e, -1).sum(axis=1).max())
+
+    def worst_case_s_pp(self) -> int:
+        """s'' with no observation: the worst case (module docstring)."""
+        return mm.worst_case_s_prime(self.seq_len, self.par, self.dims.topk, self.held)
 
     # -- Eq. 9 + threshold binning --------------------------------------------
     def optimal_c(self, s_pp: float) -> int:
@@ -119,7 +130,7 @@ class MACTController:
         deepest schedule whose chunk requirement d * s''/c <= s'_max a bin
         still covers, else the sequential one."""
         if load is None:
-            s_pp = mm.worst_case_s_prime(self.seq_len, self.par, self.dims.topk)
+            s_pp = self.worst_case_s_pp()
         else:
             s_pp = self.observed_s_pp(load, ep_size)
         sched = self._schedule_for(s_pp, max_depth)
@@ -161,8 +172,7 @@ class MACTController:
         ``placements`` (one PlacementSpec per layer) reads each layer's s''
         through its placement map."""
         if loads is None:
-            wc = mm.worst_case_s_prime(self.seq_len, self.par, self.dims.topk)
-            s_pps = [float(wc)] * num_layers
+            s_pps = [float(self.worst_case_s_pp())] * num_layers
         else:
             loads = np.asarray(loads, dtype=np.float64)
             if loads.ndim != 2 or loads.shape[0] != num_layers:

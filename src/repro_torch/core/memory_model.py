@@ -15,8 +15,27 @@ Training (Eq. 2):
 
 FCDA divides the s' term by the chunk count c (with ``pipeline_depth``
 chunks live at once: s' * min(depth, c)/c); the fused expert leg drops its
-2h dispatch-buffer half.  Eq. (8) inverts the model for the largest
-admissible s', Eq. (9) gives the chunk count c = ceil(depth * s''/s'_max).
+2h dispatch-buffer half.  Multi-head latent attention (``ModelConfig.mla``,
+the port's; DeepSeek-V3) puts its own widths in place of a*h_d + 2*k_a*h_d:
+
+    r_q + (r_kv + h_r) + a*(h_n + h_r) + a*(h_n + h_r) + a*h_v
+
+the query latent r_q, the key/value latent r_kv with the shared RoPE key
+part h_r, and each head's query, key (h_n + h_r wide) and value (h_v).
+MLA also adds, once and not per stored copy, what the fp32 score product
+and its softmax save for one layer's backward (``models/attention.py``:
+causal query blocks of q_b = min(1024, s) rows, n = s / q_b of them):
+
+    4 * b * a * (q_b^2 * n(n+1)/2 + d_qk * (s + q_b * n(n+1)/2))
+
+the fp32 probabilities of every block, and the fp32 copies of the queries
+and of each block's keys (d_qk = h_n + h_r).  It leaves out the value
+product's bf16 copy of the probabilities (2 bytes a score) and the
+backward's transients.  A chip that holds h of the e_n routed experts (``MoEConfig.experts_held``)
+counts only those in its static bytes, and its worst-case s' is
+b*s*min(k, h): every slot of its tokens routed to its experts.  Eq. (8)
+inverts the model for the largest admissible s', Eq. (9) gives the chunk
+count c = ceil(depth * s''/s'_max).
 
 Serving: the scheduler admits a request only when
 
@@ -34,6 +53,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.configs.base import HardwareProfile, ModelConfig
+from repro_torch.models.attention import BLOCK_Q
 
 
 @dataclass(frozen=True)
@@ -59,21 +79,39 @@ class LayerDims:
     g_d: int
     g_e: int
     topk: int = 1
+    attn_width: int = 0     # the attention term's width; 0: a*h_d + 2*k_a*h_d
+    score_dim: int = 0      # d_qk of MLA's score term; 0: no score term
 
     @classmethod
     def from_config(cls, cfg: ModelConfig) -> "LayerDims":
         moe = cfg.moe
+        m = cfg.mla
+        attn = 0 if m is None else (
+            m.q_lora_rank + m.kv_lora_rank + m.qk_rope_head_dim
+            + cfg.num_heads * (2 * m.qk_head_dim + m.v_head_dim))
         return cls(h=cfg.d_model, a=cfg.num_heads, h_d=cfg.resolved_head_dim,
                    k_a=cfg.num_kv_heads, e_n=moe.num_experts if moe else 0,
                    g_d=cfg.d_ff, g_e=moe.d_ff_expert if moe else 0,
-                   topk=moe.top_k if moe else 1)
+                   topk=moe.top_k if moe else 1, attn_width=attn,
+                   score_dim=0 if m is None else m.qk_head_dim)
 
 
 def shared_act_bytes(dims: LayerDims, s: int, par: Parallelism,
                      dtype_bytes: int = 2) -> float:
     """The sequence-proportional (attention + router) term of Table 2."""
-    per_tok = 5 * dims.h + dims.a * dims.h_d + 2 * dims.k_a * dims.h_d + dims.e_n
+    attn = dims.attn_width or dims.a * dims.h_d + 2 * dims.k_a * dims.h_d
+    per_tok = 5 * dims.h + attn + dims.e_n
     return dtype_bytes * par.b * s * per_tok / (par.t * par.c)
+
+
+def score_bytes(dims: LayerDims, s: int, par: Parallelism) -> float:
+    """MLA's fp32 score term (module docstring); 0 without MLA."""
+    if not dims.score_dim:
+        return 0.0
+    qb = min(BLOCK_Q, s)
+    n = s // qb
+    rows = qb * n * (n + 1) // 2          # keys over the causal query blocks
+    return 4 * par.b * dims.a * (qb * rows + dims.score_dim * (s + rows)) / (par.t * par.c)
 
 
 def m_g(par: Parallelism, r_pp: int = 0, full_recompute: bool = False) -> int:
@@ -108,14 +146,16 @@ def activation_bytes(dims: LayerDims, s: int, s_prime: float, par: Parallelism,
     live = min(max(pipeline_depth, 1), chunks)
     moe = moe_act_bytes(dims, s_prime, par, dtype_bytes,
                         fused=fused) * live / chunks
-    return copies * (shared + moe)
+    return copies * (shared + moe) + score_bytes(dims, s, par)
 
 
-def worst_case_s_prime(s: int, par: Parallelism, topk: int = 1) -> int:
+def worst_case_s_prime(s: int, par: Parallelism, topk: int = 1,
+                       held: Optional[int] = None) -> int:
     """Theoretical peak received tokens: every token-slot in the EP group
     lands on one device (paper section 3: s' approaches e*s; with top-k
-    slots, e*s*k)."""
-    return par.e * par.b * s * topk
+    slots, e*s*k).  A chip holding ``held`` experts receives at most
+    min(k, held) of a token's slots."""
+    return par.e * par.b * s * (topk if held is None else min(topk, held))
 
 
 #: bytes of training state per parameter the model charges, Megatron-style
@@ -142,7 +182,9 @@ def param_counts(cfg: ModelConfig, par: Parallelism) -> dict[str, float]:
     counts["lm_head"] = 0.0 if cfg.tie_embeddings else cfg.vocab_size * h / par.t
     attn = dense_ffn = moe_experts = moe_shared = router = mamba = norms = 0.0
     for spec in cfg.layer_specs():
-        if spec.mixer == "attn":
+        if spec.mixer == "attn" and cfg.mla is not None:
+            attn += _mla_params(cfg) / par.t
+        elif spec.mixer == "attn":
             q = h * cfg.num_heads * hd
             kv = 2 * h * cfg.num_kv_heads * hd
             o = cfg.num_heads * hd * h
@@ -158,7 +200,7 @@ def param_counts(cfg: ModelConfig, par: Parallelism) -> dict[str, float]:
             dense_ffn += 3 * h * cfg.d_ff / par.t
         elif spec.ffn == "moe":
             moe = cfg.moe
-            local_experts = max(1, moe.num_experts // par.e)
+            local_experts = max(1, min(moe.held, moe.num_experts // par.e))
             moe_experts += local_experts * 3 * h * moe.d_ff_expert / par.t
             moe_shared += moe.num_shared_experts * 3 * h * moe.d_ff_expert / par.t
             router += h * moe.num_experts
@@ -173,6 +215,15 @@ def param_counts(cfg: ModelConfig, par: Parallelism) -> dict[str, float]:
     counts.update(attn=attn, dense_ffn=dense_ffn, moe_experts=moe_experts,
                   moe_shared=moe_shared, router=router, mamba=mamba, norms=norms)
     return counts
+
+
+def _mla_params(cfg: ModelConfig) -> int:
+    """One MLA mixer's parameters: its five projections and two norms."""
+    h, a, m = cfg.d_model, cfg.num_heads, cfg.mla
+    return (h * m.q_lora_rank + m.q_lora_rank + m.q_lora_rank * a * m.qk_head_dim
+            + h * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+            + m.kv_lora_rank * a * (m.qk_nope_head_dim + m.v_head_dim)
+            + a * m.v_head_dim * h)
 
 
 def static_bytes(cfg: ModelConfig, par: Parallelism,
@@ -195,7 +246,8 @@ def total_params(cfg: ModelConfig) -> float:
 def active_params(cfg: ModelConfig) -> float:
     """Parameters a token activates: the MoE experts' count scaled by
     top_k / num_experts (shared experts and the rest whole), for a model
-    FLOPs count of 6 N_active D."""
+    FLOPs count of 6 N_active D.  For a chip holding a share of the
+    experts, the experts counted are those it holds."""
     counts = param_counts(cfg, Parallelism())
     n = sum(v for k, v in counts.items() if k != "moe_experts")
     if cfg.moe is not None:
@@ -230,7 +282,8 @@ def s_prime_max(dims: LayerDims, s: int, par: Parallelism, hw: HardwareProfile,
                 fused: bool = False, replica_bytes: float = 0.0) -> float:
     """Eq. (8): the largest per-device received-token count that fits."""
     budget = (hw.alpha * hw.hbm_bytes - static - replica_bytes
-              - copies * shared_act_bytes(dims, s, par, dtype_bytes))
+              - copies * shared_act_bytes(dims, s, par, dtype_bytes)
+              - score_bytes(dims, s, par))
     denom = (copies * dtype_bytes * par.b * _moe_per_token(dims, fused)
              / (par.t * par.c))
     return budget / denom

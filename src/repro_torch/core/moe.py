@@ -23,6 +23,9 @@ Strategies, as in the JAX package:
 Under a multi-rank mesh only ``ep_shardmap`` runs: no rank holds all the
 experts, and the port has no GSPMD to shard the others (a deliberate
 difference from the JAX package, whose ``tp_gspmd`` runs under any mesh).
+A config that holds a share of its experts (``MoEConfig.experts_held``,
+one chip of a larger EP group) runs on ``ep_shardmap`` only, at one peer
+(core/ep.py).
 """
 
 from __future__ import annotations
@@ -195,6 +198,9 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, ctx: DistContext):
       of expert-aware serving, where the JAX package runs one step per slot.
     """
     strategy = resolve_strategy(cfg, ctx, x.shape)
+    if cfg.held < cfg.num_experts and strategy != "ep_shardmap":
+        raise ValueError(f"a held share ({cfg.held} of {cfg.num_experts} experts) "
+                         f"runs on the ep_shardmap strategy, not {strategy}")
     if strategy == "ep_shardmap":
         y, stats = moe_ffn_ep(params, x, cfg, mesh=ctx.mesh,
                               chunks=ctx.moe_chunks, remat=ctx.remat_chunks,

@@ -12,16 +12,22 @@ V's type before the value product.
 * decode: one token against the cache under a per-row length mask.
 
 GQA: prefill repeats KV up to H heads; extend and decode use the grouped
-(KH, G) form, which needs no cache-sized repeat.
+(KH, G) form, which needs no cache-sized repeat.  Prefill takes a value
+head of its own width (MLA's 128 beside its 192-wide query and key heads)
+and a given softmax scale (MLA's, with YaRN's temperature).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import AttentionSpec
 
 NEG_INF = -1e30
+#: prefill's query block (``attention``); the memory model reads it too
+BLOCK_Q = 1024
 
 
 def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -53,10 +59,12 @@ def _causal_mask(sq: int, skv: int, q_start: int, kv_start: int,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               spec: AttentionSpec, *, causal: bool = True,
-              block_q: int = 1024) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KH, hd) -> (B, S, H, hd)."""
+              block_q: int = BLOCK_Q, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k: (B, S, KH, hd); v: (B, S, KH, hv) -> (B, S, H, hv).
+    ``scale`` defaults to hd^-0.5."""
     B, S, H, hd = q.shape
-    scale = hd ** -0.5
+    hv = v.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
     k = repeat_kv(k, H)
     v = repeat_kv(v, H)
     dev = q.device
@@ -67,9 +75,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"sequence {S} is not a multiple of chunk {C}")
         n = S // C
         mask = _causal_mask(C, C, 0, 0, device=dev)
-        fold = lambda t: t.reshape(B * n, C, H, hd)  # noqa: E731
+        fold = lambda t: t.reshape(B * n, C, H, t.shape[-1])  # noqa: E731
         return _block_attend(fold(q), fold(k), fold(v), mask,
-                             scale).reshape(B, S, H, hd)
+                             scale).reshape(B, S, H, hv)
 
     if not causal:
         return _block_attend(q, k, v, None, scale)

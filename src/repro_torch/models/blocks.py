@@ -22,6 +22,10 @@ Attention runs against the cache in the cache's type (the serving pool is
 fp32 whatever the weights' type); its output is cast back to the
 activations' type before the output projection, so the residual stream
 keeps the weights' type.
+
+A config with ``mla`` (DeepSeek-V3's multi-head latent attention,
+``mla_mixer``) trains only: its serving forms raise, since the port has no
+latent cache.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from repro_torch.core.moe import DistContext, moe_ffn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           extend_attention)
-from repro_torch.models.layers import apply_mlp, apply_norm, apply_rope
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+                                      yarn_freqs, yarn_mscale)
 from repro_torch.runtime import spans
 
 
@@ -142,12 +147,84 @@ def attn_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     """Prefill attention.  ``return_kv`` also returns the pre-repeat
     (B, S, KH, hd) K/V that the single-pass prefill writes into the cache.
     While the recorder records (``runtime/spans.py``), the mixer runs
-    under the span ``attn`` and its backward under ``attn.bwd``."""
+    under the span ``attn`` and its backward under ``attn.bwd``.  A config
+    with ``mla`` runs ``mla_mixer`` instead."""
+    if cfg.mla is not None:
+        if return_kv:
+            _no_latent_cache(cfg)
+        return mla_mixer(p, x, cfg, spec, positions, causal)
     with spans.span("attn", device=True):
         marks = spans.backward_span("attn.bwd", device=True)
         q, k, v = _qkv_base(p, marks.inputs(x), cfg, spec, positions)
         y = marks.output(_out_proj(p, attention(q, k, v, spec.attn, causal=causal), x))
     return (y, (k, v)) if return_kv else y
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: the query/key head's width^-0.5, times YaRN's
+    temperature squared where the config scales RoPE."""
+    scale = cfg.mla.qk_head_dim ** -0.5
+    y = cfg.yarn
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_rope(t: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """RoPE on MLA's (..., S, H, rope) parts, at YaRN's frequencies where
+    the config scales RoPE."""
+    y = cfg.yarn
+    if y is None:
+        return apply_rope(t, positions, cfg.rope_theta)
+    inv = yarn_freqs(t.shape[-1], cfg.rope_theta, y, t.device)
+    ratio = yarn_mscale(y.factor, y.mscale) / yarn_mscale(y.factor, y.mscale_all_dim)
+    return apply_rope(t, positions, cfg.rope_theta, inv_freq=inv, scale=ratio)
+
+
+def mla_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+              positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Multi-head latent attention (DeepSeek-V3's ``modeling_deepseek.py``):
+    q = wq_b(RMSNorm(x @ wq_a)), split per head into a ``qk_nope`` and a
+    ``qk_rope`` part; x @ wkv_a gives the ``kv_lora_rank`` latent and the
+    one ``qk_rope``-wide key part every head shares; wkv_b(RMSNorm(latent))
+    gives each head's ``qk_nope`` key part and its value.  RoPE (rotate-half
+    on the weights' columns as stored here) turns the two rope parts; the
+    scores and values go through ``attention`` at ``mla_scale``, and wo
+    projects the heads' values back.  Runs under the spans ``attn`` /
+    ``attn.bwd``; the four low-rank projections and their norms under
+    ``mla.proj`` / ``mla.proj.bwd`` inside them."""
+    B, S, _ = x.shape
+    m, H = cfg.mla, cfg.num_heads
+    nope, rope, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    with spans.span("attn", device=True):
+        marks = spans.backward_span("attn.bwd", device=True)
+        x = marks.inputs(x)
+        with spans.span("mla.proj", device=True):
+            proj = spans.backward_span("mla.proj.bwd", device=True)
+            xp = proj.inputs(x)
+            q = apply_norm(p["q_a_norm"], xp @ p["wq_a"]) @ p["wq_b"]
+            kv_a = xp @ p["wkv_a"]
+            kv = apply_norm(p["kv_a_norm"], kv_a[..., :m.kv_lora_rank]) @ p["wkv_b"]
+            q, kv = proj.output(q), proj.output(kv)
+            k_pe = proj.output(kv_a[..., m.kv_lora_rank:])
+        q = q.reshape(B, S, H, nope + rope)
+        kv = kv.reshape(B, S, H, nope + dv)
+        q_pe = _mla_rope(q[..., nope:], positions, cfg)
+        k_pe = _mla_rope(k_pe.reshape(B, S, 1, rope), positions, cfg)
+        q = torch.cat([q[..., :nope], q_pe], dim=-1)
+        k = torch.cat([kv[..., :nope], k_pe.expand(B, S, H, rope)], dim=-1)
+        out = attention(q, k, kv[..., nope:], spec.attn, causal=causal,
+                        scale=mla_scale(cfg))
+        y = marks.output(_out_proj(p, out, x))
+    return y
+
+
+def _no_latent_cache(cfg: ModelConfig):
+    raise NotImplementedError(
+        f"{cfg.name!r} has multi-head latent attention, which the port only "
+        f"trains (launch/train.py, Trainer.fit): it has no latent cache to "
+        f"serve or decode from")
 
 
 def cache_len(spec: LayerSpec, seq_len: int) -> int:
@@ -168,6 +245,8 @@ def attn_mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     """x: (B, 1, d); cache {"k","v"}: (B, Sc, KH, hd); pos: (B,) int.
     ``mask`` ((B,) bool): only its rows write their new K/V; the others
     write back the row they hold (a masked subset wave)."""
+    if cfg.mla is not None:
+        _no_latent_cache(cfg)
     B = x.shape[0]
     q, k, v = _qkv_base(p, x, cfg, spec, pos[:, None])
     Sc = cache["k"].shape[1]
@@ -325,6 +404,8 @@ def attn_mixer_extend(p: dict, x: torch.Tensor, cache: dict, pos0: torch.Tensor,
     the cache-before-this-chunk plus the chunk's own K/V (so ring overwrites
     within the chunk cannot clobber still-visible keys), then writes the
     chunk into the cache."""
+    if cfg.mla is not None:
+        _no_latent_cache(cfg)
     C = x.shape[1]
     positions = pos0[:, None] + torch.arange(C, device=x.device)
     q, k, v = _qkv_base(p, x, cfg, spec, positions)
@@ -547,6 +628,8 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
     if spec.mixer != "attn":
         cache = {"ssm": ssm_mod.init_state(batch, cfg.d_model, spec.ssm, dtype,
                                            device)}
+    elif cfg.mla is not None:
+        _no_latent_cache(cfg)
     else:
         Sc = cache_len(spec, seq_len)
         shape = (batch, Sc, cfg.num_kv_heads, cfg.resolved_head_dim)

@@ -68,11 +68,29 @@ def _init_attention(normal, cfg: ModelConfig, qk_norm: bool = False) -> dict:
     return p
 
 
+def _init_mla(normal, cfg: ModelConfig) -> dict:
+    """MLA's leaves, in the order of its equations (``blocks.mla_mixer``):
+    the query latent's projection, norm and up-projection, the key/value
+    latent's (with the shared RoPE key part) and its norm and
+    up-projection, the output projection."""
+    d, H, m = cfg.d_model, cfg.num_heads, cfg.mla
+    qr, kvr = m.q_lora_rank, m.kv_lora_rank
+    return {"wq_a": normal((d, qr), d ** -0.5),
+            "q_a_norm": _norm(qr, "rmsnorm", normal.device),
+            "wq_b": normal((qr, H * m.qk_head_dim), qr ** -0.5),
+            "wkv_a": normal((d, kvr + m.qk_rope_head_dim), d ** -0.5),
+            "kv_a_norm": _norm(kvr, "rmsnorm", normal.device),
+            "wkv_b": normal((kvr, H * (m.qk_nope_head_dim + m.v_head_dim)), kvr ** -0.5),
+            "wo": normal((H * m.v_head_dim, d), (H * m.v_head_dim) ** -0.5)}
+
+
 def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut,
                 cross: bool = False) -> dict:
     d = cfg.d_model
     norm = lambda: _norm(d, cfg.norm, normal.device)  # noqa: E731
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.mla is not None:
+        mixer = _init_mla(normal, cfg)
+    elif spec.mixer == "attn":
         mixer = _init_attention(normal, cfg, spec.attn.qk_norm)
     else:
         mixer = ssm_mod.init_ssm(normal, d, spec.ssm)
@@ -89,13 +107,13 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, normal, cut,
                     "w2": normal((f, d), f ** -0.5)}
         return p
     moe = cfg.moe
-    E, f = moe.num_experts, moe.d_ff_expert
+    E, f, held = moe.num_experts, moe.d_ff_expert, moe.held
     ffn = {"router": {"w": normal((d, E), d ** -0.5, torch.float32),
                       "bias": torch.zeros(E, dtype=torch.float32,
                                           device=normal.device)},
-           "w1": cut(normal((E, d, f), d ** -0.5)),
-           "w3": cut(normal((E, d, f), d ** -0.5)),
-           "w2": cut(normal((E, f, d), f ** -0.5))}
+           "w1": cut(normal((held, d, f), d ** -0.5)),
+           "w3": cut(normal((held, d, f), d ** -0.5)),
+           "w2": cut(normal((held, f, d), f ** -0.5))}
     if moe.num_shared_experts:
         fs = moe.num_shared_experts * f
         ffn["shared"] = {"w1": normal((d, fs), d ** -0.5),
@@ -124,7 +142,9 @@ def init_params(cfg: ModelConfig, *, device, dtype=torch.float32,
     ``dtype``, norm scales and the router in fp32.  Under a mesh
     (``launch/mesh.py``) each expert weight keeps only this rank's E / P
     experts, cut from the same draw as the one-rank init makes, and the
-    whole weight is freed as soon as it is cut.  An encoder-decoder
+    whole weight is freed as soon as it is cut.  A config that holds a share
+    of its experts (``MoEConfig.experts_held``) makes only those: the router
+    keeps all E outputs.  An encoder-decoder
     config's decoder layers carry ``norm_x`` and ``cross``, and its encoder
     ``encoder_layers`` layers of ``_ENC_SPEC``."""
     normal = _Normal(seed, device, dtype)

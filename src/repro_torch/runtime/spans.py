@@ -31,8 +31,11 @@ The training step's spans (``training/trainer.py``, ``training/step.py``,
     train.batch     the batch's copy to the device
     train.forward   the loss
       attn          an attention mixer, projections to output projection (device)
+        mla.proj    MLA's four low-rank projections and their norms (device)
+      moe.route     an MoE layer's router, each FCDA chunk (device)
     train.backward  ``torch.autograd.grad``
       attn.bwd      an attention mixer's backward (device)
+        mla.proj.bwd  their backward (device)
       remat.layer   a layer checkpoint's recompute (device)
       remat.chunk   an FCDA chunk checkpoint's recompute (device)
     train.optimizer clipping norm, AdamW, router-bias steps (device)

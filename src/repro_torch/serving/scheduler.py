@@ -152,10 +152,15 @@ class ServeConfig:
 def check_servable(cfg: ModelConfig) -> None:
     """The schedulers serve token-only decoders, as the reference's do: an
     encoder or patch-input config raises (``engine.prefill`` and
-    ``engine.generate`` serve it)."""
+    ``engine.generate`` serve it), and so does a config with latent
+    attention, which only trains."""
     if cfg.encoder_layers or cfg.num_patch_tokens:
         raise ValueError("continuous batching serves token-only decoders; "
                          f"{cfg.name!r} needs per-request encoder state")
+    if cfg.mla is not None:
+        raise ValueError(f"{cfg.name!r} has multi-head latent attention, which "
+                         f"the port only trains (launch/train.py): it has no "
+                         f"latent cache to serve from")
 
 
 class ContinuousBatchingScheduler:

@@ -70,7 +70,6 @@ import torch
 
 from repro_torch import checkpointing
 from repro_torch.configs.base import H100_80G, HardwareProfile, ModelConfig
-from repro_torch.core import memory_model as mm
 from repro_torch.core import placement as plc
 from repro_torch.core.chunking import ScheduleSpec
 from repro_torch.core.mact import MACTController
@@ -357,7 +356,7 @@ class Trainer:
         if self._last_load is not None:
             s_pp = self.mact.observed_s_pp(self._last_load, self._plan_params()[0])
         else:
-            s_pp = mm.worst_case_s_prime(self.seq_len, self.par, self.mact.dims.topk)
+            s_pp = self.mact.worst_case_s_pp()
         report = self.mact.memory_report(s_pp, chunks, depth)
         audit = {"step": step, "key": key, "s_pp": float(s_pp),
                  "modeled_total_gb": report["total_gb"],

@@ -116,7 +116,9 @@ def _assert_step_close(jnew, tnew, tc) -> None:
 
 
 def test_every_reference_architecture_is_registered():
-    assert sorted(tregistry()) == ARCHS
+    # beside the reference's, the port's own DeepSeek-V3 configs
+    # (tests/test_torch_deepseek.py)
+    assert sorted(tregistry()) == sorted([*ARCHS, "deepseek-v3", "deepseek-v3-ep32"])
     assert {c.family for c in tregistry().values()} >= {
         "hybrid", "dense", "moe", "audio", "vlm", "ssm"}
 

@@ -196,6 +196,8 @@ def test_one_memfine_step_records_each_recompute_and_chunk_run(chunks, depth):
     # every parameter element it updated, none of them by the card's kernel
     assert spans.counters() == {"fcda.chunk_runs": layers * (3 * chunks - depth),
                                 "adamw.elems": sum(p.numel() for p in param_list(state.params))}
+    # the router runs in every chunk's forward and in each recompute of it
+    assert len(by["moe.route"]) == layers * (3 * chunks - depth)
     (step,), (bwd,) = by["train.step"], by["train.backward"]
     for r in recs:
         assert step.start_ns <= r.start_ns <= r.end_ns <= step.end_ns, r.name
